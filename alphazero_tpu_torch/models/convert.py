@@ -10,10 +10,16 @@ flax names modules by creation order: the top level holds ``Conv_0`` (stem),
 and ``Conv_2``/``Dense_1``/``Dense_2`` (value head); each block holds
 ``Conv_0``, ``BatchNorm_0``, ``Conv_1``, ``BatchNorm_1`` and ``SEBlock_0``
 with ``Dense_0``/``Dense_1``.
+
+``folded_from_jax`` and ``quant_params_from_jax`` carry the flat ``fp`` and
+``qp`` dicts of the JAX ``models/quant.py`` across as they are (NHWC/HWIO
+layouts, [in, out] dense kernels, int8 weights, f32 scales): the port's
+``models/quant.py`` keeps those layouts, so both packages can run on
+identical quantised parameters.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -66,3 +72,31 @@ def state_dict_from_flax(variables: Dict, num_blocks: int) -> Dict[str, torch.Te
     _dense(sd, "value_fc1", params["Dense_1"])
     _dense(sd, "value_fc2", params["Dense_2"])
     return sd
+
+
+def _tree_to_torch(x: Any, device) -> Any:
+    if isinstance(x, dict):
+        return {k: _tree_to_torch(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_tree_to_torch(v, device) for v in x]
+    if isinstance(x, (int, str)):
+        return x
+    arr = np.array(x, copy=True)
+    if arr.ndim == 0 and arr.dtype == np.int64:  # a count, e.g. num_blocks
+        return int(arr)
+    if arr.dtype not in (np.int8, np.int32, np.float32):
+        raise TypeError(f"unexpected dtype {arr.dtype} in quantised parameters")
+    return torch.from_numpy(arr).to(device)
+
+
+def folded_from_jax(fp_numpy: Dict, device="cpu") -> Dict:
+    """The folded-parameter dict ``fp`` of JAX ``extract_folded`` (leaves as
+    numpy arrays) as the port's ``fp``."""
+    return _tree_to_torch(fp_numpy, device)
+
+
+def quant_params_from_jax(qp_numpy: Dict, device="cpu") -> Dict:
+    """The quantised-parameter dict ``qp`` of JAX ``quantize`` /
+    ``build_quantized_params`` (leaves as numpy arrays) as the port's
+    ``qp``."""
+    return _tree_to_torch(qp_numpy, device)

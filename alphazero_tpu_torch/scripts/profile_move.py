@@ -1,13 +1,16 @@
 """Where one self-play move's time goes on the card.
 
 Plays one warm-up move and one timed move, then profiles one move of the main path
-(flagship bundle, BN-folded bf16, B games, 800 simulations, W=16) with
+(flagship bundle, B games, 800 simulations, W=16; ``--inference folded``:
+the BN-folded bf16 net, ``--inference int8``: the production int8 executor) with
 ``torch.profiler`` and prints one JSON line: the move's wall time (the
 profiler's own host cost included), the summed device time of all kernels,
 the device-busy share (device time over wall time), the operators' host
-time and call count, and the top operators by device and by host time.
+time and call count, the top operators by device and by host time, and the
+top kernels by device time (where the hand-written kernels show, which no
+operator owns).
 
-    python -m alphazero_tpu_torch.scripts.profile_move --batch 1024
+    python -m alphazero_tpu_torch.scripts.profile_move --batch 1024 --inference int8
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ def main(argv=None):
     p.add_argument("--simulations", type=int, default=800)
     p.add_argument("--wave", type=int, default=16)
     p.add_argument("--top", type=int, default=12)
+    p.add_argument("--inference", default="folded", choices=["folded", "int8"])
     args = p.parse_args(argv)
 
     import torch
@@ -41,9 +45,15 @@ def main(argv=None):
     config = SelfPlayConfig(
         mcts=MCTSConfig(num_simulations=args.simulations, wave_size=args.wave),
         recycle=True)
-    step, states = make_host_actor(env, make_inference_eval_fn(model), config,
-                                   args.batch, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.inference == "int8":
+        from alphazero_tpu_torch.models.quant import make_production_eval_fn
+
+        eval_fn, _ = make_production_eval_fn(env, model, generator=gen)
+    else:
+        eval_fn = make_inference_eval_fn(model)
+    step, states = make_host_actor(env, eval_fn, config, args.batch,
+                                   device="cuda")
     states, _ = step(states, gen)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -77,7 +87,7 @@ def main(argv=None):
                 for e in sorted(es, key=key, reverse=True)[:args.top]]
 
     print(json.dumps({
-        "card": torch.cuda.get_device_name(0),
+        "card": torch.cuda.get_device_name(0), "inference": args.inference,
         "batch": args.batch, "simulations": args.simulations,
         "wave": args.wave, "move_wall_unprofiled_s": plain_wall,
         "move_wall_s": wall,
@@ -85,6 +95,8 @@ def main(argv=None):
         "device_busy_share": device_us / 1e6 / wall,
         "op_host_s": host_us / 1e6,
         "op_calls": sum(e.count for e in ops),
+        "kernel_launches": sum(e.count for e in kernels),
+        "top_kernels_by_device": rows(kernels, dev_us),
         "top_ops_by_device": rows(ops, dev_us),
         "top_ops_by_host": rows(ops, lambda e: e.self_cpu_time_total),
     }))

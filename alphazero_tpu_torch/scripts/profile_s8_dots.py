@@ -1,0 +1,173 @@
+"""Time the hand-written s8 / bf16 products at the probes' own shapes.
+
+One counterpart of the JAX package's three probe tools
+(``tools/profile_fused_shapes.py``, ``tools/profile_inkernel_dot.py``,
+``tools/profile_pallas_mm.py``): every case runs its kernel of
+``ops/s8_mm.py`` on the card, holds the result against the plain PyTorch
+version (s8: bit for bit; bf16: within ``BF16_TOL`` of the largest
+reference value; a chained dot at no more than ``CHECK_CHAIN`` steps) and
+prints one JSON line with the time by CUDA events, the achieved TOP/s, the
+plain version's time and the roofline bound (operations at the tensor
+cores' peak against bytes at the memory's rate).
+
+    python -m alphazero_tpu_torch.scripts.profile_s8_dots [--reps 20] [--chain 64]
+
+The package calls no library product of the same function, so
+``library_ms`` is null here; ``chip_smoke.py`` passes its yardstick calls
+in through ``run_case(..., library=...)``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+from alphazero_tpu_torch.ops import s8_mm as ops
+
+# H100 SXM data sheet: dense tensor-core peaks and HBM3 rate.
+PEAK_OPS = {torch.int8: 1979e12, torch.bfloat16: 989e12}
+HBM_BYTES_PER_S = 3.35e12
+# bf16 -> f32: kernel and plain version both sum in f32 but in another order
+# (relative 1e-4 of the largest value covers K = 2048).  chained_dot rounds
+# to bf16 between its products, where a differing last f32 bit can flip a
+# rounding (2**-8 relative) that the following products carry along.
+BF16_TOL = {"tiled_mm": 1e-4, "chained_dot": 2e-2}
+CHECK_CHAIN = 8  # chained_dot is checked at R <= 8 and timed at its own R
+
+
+class Case(NamedTuple):
+    kernel: str  # wrapper name in ops/s8_mm.py
+    name: str
+    dtype: torch.dtype
+    a_shape: Tuple[int, int]
+    b_shape: Tuple[int, ...]
+    R: int = 0  # chained_dot only
+
+
+def probe_cases(chain: int):
+    """The probe tools' shapes.  ``chain``: R of the chained-dot cases."""
+    s8, bf = torch.int8, torch.bfloat16
+    M = 14400  # 64 boards x 15 x 15
+    cases = [Case("s8_mm", f"probe_{K}x{N}", s8, (M, K), (K, N))
+             for K, N in ((128, 64), (128, 128), (576, 64), (640, 128))]
+    cases.append(Case("s8_mm_multi", "probe_5x128x64", s8, (M, 128), (5, 128, 64)))
+    cases += [Case("chained_dot", f"s8_{m}x{K}x{N}", s8, (m, K), (K, N), chain)
+              for m, K, N in ((3600, 128, 64), (3600, 128, 128), (3600, 256, 128),
+                              (1800, 640, 128), (3600, 640, 64), (7200, 128, 64),
+                              (3600, 576, 64))]
+    cases += [Case("chained_dot", f"bf16_{m}x{K}x{N}", bf, (m, K), (K, N), chain)
+              for m, K, N in ((3600, 128, 128), (3600, 128, 64))]
+    cases += [Case("tiled_mm", "s8_8192x2048x2048", s8, (8192, 2048), (2048, 2048)),
+              Case("tiled_mm", "bf16_8192x2048x2048", bf, (8192, 2048), (2048, 2048))]
+    return cases
+
+
+def trunk_cases(boards: int = 512, cells: int = 225):
+    """``s8_mm`` at the int8 trunk's shapes for one chunk of ``boards``
+    15x15 positions: the 3x3 conv in im2col form, the stem and a 1x1 head."""
+    M = boards * cells
+    return [Case("s8_mm", "conv3x3_64", torch.int8, (M, 576), (576, 64)),
+            Case("s8_mm", "stem_11", torch.int8, (M, 99), (99, 64)),
+            Case("s8_mm", "head_1x1", torch.int8, (M, 64), (64, 32))]
+
+
+def cuda_ms(fn: Callable[[], object], reps: int) -> float:
+    """Mean milliseconds per call over ``reps`` calls, by CUDA events."""
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def make_inputs(case: Case, gen: torch.Generator):
+    def rand(shape):
+        if case.dtype == torch.int8:
+            return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                 dtype=torch.int8)
+        x = torch.randn(shape, generator=gen, device="cuda")
+        scale = 0.02 if case.kernel == "tiled_mm" else 1.0
+        return (x * scale).to(torch.bfloat16)
+
+    return rand(case.a_shape), rand(case.b_shape)
+
+
+def work(case: Case) -> Tuple[int, int]:
+    """(operations, bytes) of one call: 2 per multiply-add; every input read
+    once and the output written once."""
+    M, K = case.a_shape
+    N = case.b_shape[-1]
+    taps = case.b_shape[0] if len(case.b_shape) == 3 else 1
+    es = 1 if case.dtype == torch.int8 else 2
+    ops_ = 2 * M * K * N * taps * (case.R + 1)
+    bytes_ = (M * K + taps * K * N) * es + M * N * 4
+    return ops_, bytes_
+
+
+def run_case(case: Case, gen: torch.Generator, reps: int,
+             library: Optional[Callable] = None) -> dict:
+    """Check one case against its plain version and time it.  ``library``,
+    if given, is called as ``library(a, b)`` and timed as the yardstick."""
+    a, b = make_inputs(case, gen)
+    fn = getattr(ops, case.kernel)
+    plain = getattr(ops, case.kernel + "_plain")
+    args = (a, b, case.R) if case.kernel == "chained_dot" else (a, b)
+    # A long bf16 chain shrinks to zero (every step scales by 0.001), which
+    # would compare nothing: the check stops at CHECK_CHAIN steps.
+    checked = (a, b, min(case.R, CHECK_CHAIN)) if len(args) == 3 else args
+    out, ref = fn(*checked), plain(*checked)
+    torch.cuda.synchronize()
+    err = float((out.double() - ref.double()).abs().max())
+    if case.dtype == torch.int8:
+        ok = torch.equal(out, ref)
+    else:
+        ok = err <= BF16_TOL[case.kernel] * float(ref.abs().max())
+    n_ops, n_bytes = work(case)
+    t_ops, t_bytes = n_ops / PEAK_OPS[case.dtype], n_bytes / HBM_BYTES_PER_S
+    ms = cuda_ms(lambda: fn(*args), reps)
+    return {
+        "kernel": case.kernel, "case": case.name,
+        "dtype": str(case.dtype).replace("torch.", ""),
+        "a": list(case.a_shape), "b": list(case.b_shape), "R": case.R,
+        "agrees": bool(ok), "max_abs_err": err,
+        "ref_max": float(ref.abs().max()),
+        "ms": ms, "tops": n_ops / (ms * 1e-3) / 1e12,
+        "plain_ms": cuda_ms(lambda: plain(*args), max(2, reps // 4)),
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": (cuda_ms(lambda: library(a, b), reps)
+                       if library is not None else None),
+    }
+
+
+def main(argv=None) -> list:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--reps", type=int, default=20)
+    p.add_argument("--chain", type=int, default=64,
+                   help="R of the chained-dot cases")
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_s8_dots needs a CUDA card")
+    print(json.dumps({"card": torch.cuda.get_device_name(0)}), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    rows = []
+    for case in trunk_cases() + probe_cases(args.chain):
+        row = run_case(case, gen, args.reps)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    bad = [f"{r['kernel']}:{r['case']}" for r in rows if not r["agrees"]]
+    if bad:
+        raise SystemExit(f"kernels disagree with their plain versions: {bad}")
+    return rows
+
+
+if __name__ == "__main__":
+    main()

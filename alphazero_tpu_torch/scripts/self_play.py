@@ -1,8 +1,11 @@
 """Self-play generation CLI (counterpart of
 ``alphazero_tpu/scripts/self_play.py``, the same flags plus ``--device``).
 
-Generates games with a model bundle (BN-folded, bf16) or the uniform stub
-and writes GameRecord JSONs; prints one JSON stats line.
+Generates games with a model bundle or the uniform stub and writes
+GameRecord JSONs; prints one JSON stats line.  ``--inference folded`` (the
+default) runs the BN-folded bf16 net; ``--inference int8`` runs the
+production executor of ``production.py`` (rollout calibration on the folded
+net, then the int8 trunk of ``models/quant.py``).
 
     python -m alphazero_tpu_torch.scripts.self_play \\
         --model models_zoo/flagship_gomoku15 --num-games 64
@@ -31,6 +34,9 @@ def main(argv=None):
     p.add_argument("--wave", type=int, default=16,
                    help="virtual-loss descents per wave sharing one NN batch "
                    "(MCTSConfig.wave_size; the W=1 path is not ported yet)")
+    p.add_argument("--inference", default="folded", choices=["folded", "int8"],
+                   help="executor for --model: BN-folded bf16, or the "
+                   "production int8 trunk (production.py)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
     args = p.parse_args(argv)
@@ -52,7 +58,14 @@ def main(argv=None):
         from alphazero_tpu_torch.models.resnet import make_inference_eval_fn
 
         model, _ = load_model(args.model, env.observation_shape, device=device)
-        eval_fn = make_inference_eval_fn(model)  # BN-folded, cfg.dtype
+        if args.inference == "int8":
+            from alphazero_tpu_torch.models.quant import make_production_eval_fn
+
+            calib_gen = torch.Generator(device=device).manual_seed(args.seed + 7)
+            eval_fn, _ = make_production_eval_fn(env, model, device=device,
+                                                 generator=calib_gen)
+        else:
+            eval_fn = make_inference_eval_fn(model)  # BN-folded, cfg.dtype
     else:
         eval_fn = make_uniform_eval_fn(env.num_actions, value_noise=0.1)
 

@@ -5,23 +5,40 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build: every CUDA kernel of the main path, built with nvcc (sm_90a);
-  3. kernels: each kernel against its plain PyTorch version on the card at
-     the main path's shapes (bit for bit), with CUDA-event times of the
-     kernel, the plain version and one PyTorch library call, and the bound;
-  4. main path at full width: the flagship 6x64 SE-ResNet bundle, BN-folded,
-     in bf16, driving make_host_actor at B=1024, 800 simulations, W=16,
-     K=32, recycle on, for 3 moves (1 warm-up, 2 timed); checks root visit
-     sums, action legality and that the kernels were launched; plus the
-     net's outputs on the card against the port's f32 CPU forward;
-  5. card vs CPU search: B=64, 256 simulations, W=16, zero-value uniform
+  2. build: every CUDA source (gather_rows, s8_mm), one nvcc each, started
+     together (sm_90a);
+  3. kernels: each kernel against its plain PyTorch version on the card:
+     gather_rows at the search's shapes (bit for bit); s8_mm at the int8
+     trunk's shapes and the probes' shapes, s8_mm_multi, chained_dot (R=8)
+     and tiled_mm at the probes' shapes through
+     scripts/profile_s8_dots.run_case (s8 bit for bit, bf16 within its
+     stated tolerance); with CUDA-event times of the kernel, the plain
+     version and one PyTorch library call, and the roofline bound;
+  4. nets on the card against the port's CPU forwards on 64 mid-game
+     positions: bf16/f32 folded net, and the int8 executor on the same qp;
+  5. main path at full width with the production executor: the flagship
+     6x64 SE-ResNet bundle, rollout calibration on the card, int8 trunk,
+     driving make_host_actor at B=1024, 800 simulations, W=16, K=32,
+     recycle on, for 3 moves (1 warm-up, 2 timed); checks root visit sums,
+     action legality, and that gather_rows and s8_mm were launched, s8_mm
+     exactly as often as the chunk count predicts;
+  6. the earlier main path (BN-folded bf16 net), shallower: 192 simulations,
+     2 moves, same checks;
+  7. the probe entry point scripts/profile_s8_dots.main, whose path runs
+     s8_mm_multi, chained_dot and tiled_mm: launch counts;
+  8. card vs CPU search: B=64, 256 simulations, W=16, zero-value uniform
      evaluator, no noise, greedy, on 15x15 openings and on crowded 7x7
      positions (deeper trees): visit counts must be equal;
-  6. summary: one JSON line of kernels, then the final status line.
+  9. summary: one JSON line of kernels, then the final status line.
 
-Kernel times are taken with warm L2 (the search re-reads the same arenas
-within a wave); ``bound_ms`` counts the bytes the call must move (indices,
-each distinct gathered row once, the output once) at 3.35 TB/s.
+gather_rows times are taken with warm L2 (the search re-reads the same
+arenas within a wave); its ``bound_ms`` counts the bytes the call must move
+(indices, each distinct gathered row once, the output once) at 3.35 TB/s.
+The products' ``bound_ms`` is the larger of their operations at the tensor
+cores' peak (1,979 TOP/s int8, 989 TFLOP/s bf16) and their bytes (inputs
+and output once) at 3.35 TB/s.  ``library_ms`` times ``torch._int_mm``
+(s8) or ``torch.matmul`` (bf16) where they take the shape; the port itself
+calls neither for these products.
 """
 from __future__ import annotations
 
@@ -87,12 +104,15 @@ def phase_device() -> tuple:
 def phase_build() -> None:
     from alphazero_tpu_torch.ops import _build
 
+    names = ["gather_rows", "s8_mm"]
     t0 = time.perf_counter()
-    _build.build(["gather_rows"])
+    _build.build(names)
     secs = time.perf_counter() - t0
-    regs = [ln.strip() for ln in _build.ptxas_log.get("gather_rows", "").splitlines()
-            if "registers" in ln]
-    log(f"[build] gather_rows built in {secs:.2f} s; ptxas: {regs[:1]}")
+    for n in names:
+        regs = [ln.strip() for ln in _build.ptxas_log.get(n, "").splitlines()
+                if "registers" in ln]
+        log(f"[build] {n}: ptxas {regs}")
+    log(f"[build] {names} built in {secs:.2f} s")
 
 
 def _gather_case(name, B, N, K, M, dtype, lo, hi, gen):
@@ -158,6 +178,36 @@ def phase_kernels() -> list:
     return rows
 
 
+def _library_for(case):
+    """The PyTorch call that computes the same function, where one does."""
+    if case.kernel not in ("s8_mm", "tiled_mm"):
+        return None
+    if case.dtype == torch.bfloat16:
+        return torch.matmul  # bf16 result, f32 accumulation
+    M, K = case.a_shape
+    N = case.b_shape[-1]
+    if M > 16 and K % 8 == 0 and N % 8 == 0:  # what torch._int_mm accepts
+        return torch._int_mm
+    return None
+
+
+def phase_products() -> list:
+    """Every s8 / bf16 product kernel against its plain version, at the
+    int8 trunk's shapes and the probes' shapes."""
+    from alphazero_tpu_torch.scripts import profile_s8_dots as probe
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for case in probe.trunk_cases() + probe.probe_cases(chain=8):
+        row = probe.run_case(case, gen, reps=20, library=_library_for(case))
+        log("[kernel] " + json.dumps(row))
+        rows.append(row)
+    bad = [f"{r['kernel']}:{r['case']}" for r in rows if not r["agrees"]]
+    if bad:
+        raise AssertionError(f"kernels differ from their plain versions: {bad}")
+    return rows
+
+
 def _random_states(env, B, plies, seed, device):
     """Numpy-chosen random openings; lane b plays ``b % plies`` moves that do
     not end the game.  Built on the CPU, then moved to ``device``."""
@@ -212,25 +262,105 @@ def phase_net(env, model_path) -> dict:
     return res
 
 
-def phase_main_path(env, model_path) -> dict:
+def phase_net_int8(env, model, calib) -> dict:
+    """The int8 executor on the card (s8_mm kernel) against the port's own
+    int8 forward on the CPU (plain s8 product), same quantised parameters,
+    in the production modes, on 64 mid-game positions."""
+    from alphazero_tpu_torch import production
+    from alphazero_tpu_torch.models import quant
+
+    qp = quant.build_quantized_params(
+        model, calib, calib_percentile=production.INT8_CALIB_PERCENTILE)
+
+    def to_cpu(x):
+        if isinstance(x, dict):
+            return {k: to_cpu(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [to_cpu(v) for v in x]
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    def traced(params, obs):
+        """forward_int8 plus every s8 activation it quantised."""
+        acts, orig = [], quant._quant_act
+
+        def record(*args, **kw):
+            acts.append(orig(*args, **kw))
+            return acts[-1]
+
+        quant._quant_act = record
+        try:
+            with torch.no_grad():
+                out = quant.forward_int8(params, obs, production.INT8_RESIDUAL,
+                                         production.INT8_HEADS)
+        finally:
+            quant._quant_act = orig
+        return out, acts
+
+    obs = env.observation(_random_states(env, 64, 40, seed=1, device="cpu"))
+    (ref_l, ref_v), ref_acts = traced(to_cpu(qp), obs)
+    (l, v), acts = traced(qp, obs.cuda())
+    torch.cuda.synchronize()
+    diffs = [(a.cpu().int() - r.int()).abs() for a, r in zip(acts, ref_acts)]
+    total = sum(d.numel() for d in diffs)
+    res = {
+        "quant_points": len(diffs),
+        "s8_differing_share": sum(int((d > 0).sum()) for d in diffs) / total,
+        "s8_max_diff": max(int(d.max()) for d in diffs),
+        "logit_err": float((l.cpu() - ref_l).abs().max()),
+        "value_err": float((v.cpu() - ref_v).abs().max()),
+        "logit_scale": float(ref_l.abs().max()),
+    }
+    log("[net_int8] " + json.dumps(res))
+    # The s8 products are exact on both sides.  What differs is the order of
+    # the f32 sums in the SE gate's contraction and of the bf16 head
+    # products, and the sigmoid.  A gate off by one bf16 ulp (2**-8
+    # relative) moves ``h2 * g``, which percentile clipping lets reach
+    # several times the next scale, by more than one s8 step there, and
+    # later layers carry a flipped rounding on.  Limits: under 1 % of s8
+    # activations differ, none by more than 4 steps; heads as for the bf16
+    # net.
+    if not (res["s8_differing_share"] < 0.01 and res["s8_max_diff"] <= 4):
+        raise AssertionError(f"int8 trunk on the card disagrees with the CPU: {res}")
+    if not (res["logit_err"] < 0.5 and res["value_err"] < 0.1):
+        raise AssertionError(f"int8 net on the card disagrees with the CPU: {res}")
+    return res
+
+
+def _s8_launches_expected(batches, convs: int, chunk: int) -> int:
+    """s8_mm launches of the evaluator for the batch sizes it was given:
+    one per conv per chunk."""
+    return sum(convs * (n // chunk if n > chunk and n % chunk == 0 else 1)
+               for n in batches)
+
+
+def phase_main_path(env, eval_fn, label: str, sims: int, moves: int,
+                    s8_convs: int = 0) -> dict:
+    """Self-play moves at full width (B=1024, W=16, K=32, recycle) with
+    ``eval_fn``; the first move is the warm-up.  ``s8_convs``: s8_mm
+    launches the evaluator makes per chunk (0: none expected)."""
+    from alphazero_tpu_torch import production
     from alphazero_tpu_torch.mcts.search import MCTSConfig
-    from alphazero_tpu_torch.models.io import load_model
-    from alphazero_tpu_torch.models.resnet import make_inference_eval_fn
     from alphazero_tpu_torch.ops.gather_rows import gather_rows
+    from alphazero_tpu_torch.ops.s8_mm import s8_mm
     from alphazero_tpu_torch.selfplay.actor import SelfPlayConfig, make_host_actor
 
-    B, sims, W = 1024, 800, 16
-    model, _ = load_model(model_path, env.observation_shape, device="cuda")
-    eval_fn = make_inference_eval_fn(model)  # BN-folded, bf16
+    B, W = 1024, 16
+    batches = []
+
+    def counted_eval(obs, to_play=None):
+        batches.append(obs.shape[0])
+        return eval_fn(obs, to_play)
+
     config = SelfPlayConfig(
         mcts=MCTSConfig(num_simulations=sims, wave_size=W, max_children=32),
         recycle=True)
-    step, states = make_host_actor(env, eval_fn, config, B, device="cuda")
+    step, states = make_host_actor(env, counted_eval, config, B, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     gather_rows.launches = 0
+    s8_mm.launches = 0
     times = []
-    for move in range(3):
+    for move in range(moves):
         legal = env.legal_mask(states)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -244,25 +374,49 @@ def phase_main_path(env, model_path) -> dict:
         if not bool(chosen_legal[rec.active].all()):
             raise AssertionError(f"move {move}: an illegal action was chosen")
         states = new_states
-    launches = gather_rows.launches
-    if launches <= 0:
+    launches = {"gather_rows": gather_rows.launches, "s8_mm": s8_mm.launches}
+    if launches["gather_rows"] <= 0:
         raise AssertionError("the main path launched no gather_rows kernel")
+    expected = _s8_launches_expected(batches, s8_convs, production.INT8_CHUNK)
+    if launches["s8_mm"] != expected or (s8_convs and expected <= 0):
+        raise AssertionError(f"s8_mm launches {launches['s8_mm']}, but the "
+                             f"evaluated batches predict {expected}")
 
     # One wave's evaluation alone, to split the move time.
     obs = env.observation(env.init(B * W, device="cuda"))
     eval_ms = cuda_ms(lambda: eval_fn(obs, None), reps=5)
     waves = config.mcts.waves
+    timed = times[1:]
     res = {
-        "B": B, "simulations": sims, "wave": W, "moves": 3,
-        "move_s": times, "timed_moves_per_s": 2 * B / sum(times[1:]),
-        "gather_rows_launches": launches,
-        "launches_per_move": launches / 3,
+        "inference": label, "B": B, "simulations": sims, "wave": W,
+        "moves": moves, "move_s": times,
+        "timed_moves_per_s": len(timed) * B / sum(timed),
+        "launches": launches, "s8_mm_launches_expected": expected,
+        "eval_calls": len(batches),
         "eval_ms_per_wave": eval_ms,
-        "eval_share_est": eval_ms * (waves + 1) / 1e3 / (sum(times[1:]) / 2),
+        "eval_share_est": eval_ms * (waves + 1) / 1e3 / (sum(timed) / len(timed)),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     log("[main] " + json.dumps(res))
     return res
+
+
+def phase_probe_path() -> dict:
+    """The probe entry point as a user runs it; its path launches
+    s8_mm_multi, chained_dot and tiled_mm (and s8_mm)."""
+    from alphazero_tpu_torch.ops import s8_mm as ops
+    from alphazero_tpu_torch.scripts import profile_s8_dots as probe
+
+    names = ("s8_mm", "s8_mm_multi", "chained_dot", "tiled_mm")
+    for n in names:
+        getattr(ops, n).launches = 0
+    probe.main(["--reps", "3", "--chain", "8"])
+    launches = {n: getattr(ops, n).launches for n in names}
+    log("[probe_path] " + json.dumps(launches))
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"the probe path launched no kernel of {missing}")
+    return launches
 
 
 def phase_card_vs_cpu() -> list:
@@ -307,10 +461,30 @@ def main() -> int:
     name, _ = phase_device()
     phase_build()
     rows = phase_kernels()
+    prod_rows = phase_products()
     env = registry.create_game("gomoku", 15)
     model_path = os.path.join(ROOT, "models_zoo", "flagship_gomoku15")
     phase_net(env, model_path)
-    main_res = phase_main_path(env, model_path)
+
+    from alphazero_tpu_torch.models.io import load_model
+    from alphazero_tpu_torch.models.quant import make_production_eval_fn
+    from alphazero_tpu_torch.models.resnet import make_inference_eval_fn
+
+    model, _ = load_model(model_path, env.observation_shape, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    int8_eval, calib = make_production_eval_fn(
+        env, model, generator=torch.Generator(device="cuda").manual_seed(7))
+    torch.cuda.synchronize()
+    log(f"[calibration] {tuple(calib.shape)} rollout observations, calibrated "
+        f"and quantised in {time.perf_counter() - t0:.2f} s")
+    phase_net_int8(env, model, calib)
+    convs = 1 + 2 * model.cfg.num_blocks  # bf16 heads: trunk convs only
+    main_res = phase_main_path(env, int8_eval, "int8", sims=800, moves=3,
+                               s8_convs=convs)
+    phase_main_path(env, make_inference_eval_fn(model), "folded", sims=192,
+                    moves=2)
+    probe_launches = phase_probe_path()
     phase_card_vs_cpu()
 
     head = rows[0]  # child stats: the most rows of any gather per level
@@ -319,7 +493,7 @@ def main() -> int:
         "route": "cuda",
         "source": "alphazero_tpu_torch/csrc/gather_rows.cu",
         "replaces": "alphazero_tpu/ops/gather_rows.py:58",
-        "launches": main_res["gather_rows_launches"],
+        "launches": main_res["launches"]["gather_rows"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -327,6 +501,32 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": head["library_ms"],
     }]
+    # One line per product kernel: the case named here gives the times (the
+    # main path's conv shape for s8_mm), all its cases the largest error.
+    for kname, case, replaces, launches in (
+            ("s8_mm", "conv3x3_64", "tools/profile_fused_shapes.py:46",
+             main_res["launches"]["s8_mm"]),
+            ("s8_mm_multi", "probe_5x128x64", "tools/profile_fused_shapes.py:68",
+             probe_launches["s8_mm_multi"]),
+            ("chained_dot", "s8_3600x576x64", "tools/profile_inkernel_dot.py:23",
+             probe_launches["chained_dot"]),
+            ("tiled_mm", "s8_8192x2048x2048", "tools/profile_pallas_mm.py:30",
+             probe_launches["tiled_mm"])):
+        mine = [r for r in prod_rows if r["kernel"] == kname]
+        row = next(r for r in mine if r["case"] == case)
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "alphazero_tpu_torch/csrc/s8_mm.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,212 @@
+"""The port's s8 / bf16 products (``ops/s8_mm.py``) against the JAX probe
+kernels themselves, run in Pallas interpret mode, and against numpy.
+
+The probe tools under ``tools/`` take no ``interpret`` argument, so the
+tests patch ``pallas_call`` with ``interpret=True`` before calling them.  On
+the CPU the port's wrappers take their plain PyTorch versions; the CUDA
+kernels are held against those on the card by ``chip_smoke.py`` and the
+``cuda``-marked test below.
+"""
+import functools
+import importlib.util
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from alphazero_tpu_torch.ops.s8_mm import (
+    chained_dot, chained_dot_plain, s8_mm, s8_mm_multi, s8_mm_multi_plain,
+    s8_mm_plain, tiled_mm, tiled_mm_plain,
+)
+
+TOOLS = pathlib.Path(__file__).resolve().parents[1] / "tools"
+
+
+def _load_tool(name):
+    """Import ``tools/<name>.py`` and put back the compile-cache settings it
+    changes at import."""
+    keep = {k: getattr(jax.config, k) for k in (
+        "jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")}
+    spec = importlib.util.spec_from_file_location(f"_probe_{name}", TOOLS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        for k, v in keep.items():
+            jax.config.update(k, v)
+    return mod
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+
+
+def _s8(rng, shape):
+    return rng.integers(-127, 128, shape).astype(np.int8)
+
+
+def _np_mm(a, b):
+    return a.astype(np.int32) @ b.astype(np.int32)
+
+
+@pytest.mark.parametrize("M,K,N,BM", [(64, 128, 64, 16), (96, 576, 64, 32),
+                                      (48, 640, 128, 24)])
+def test_s8_mm_matches_pallas_mm(interpret, M, K, N, BM):
+    tool = _load_tool("profile_fused_shapes")
+    rng = np.random.default_rng(0)
+    a, b = _s8(rng, (M, K)), _s8(rng, (K, N))
+    want = np.asarray(tool.pallas_mm(M, K, N, BM)(jnp.asarray(a), jnp.asarray(b)))
+    got = s8_mm(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)  # integers: exact
+    np.testing.assert_array_equal(want, _np_mm(a, b))
+
+
+def test_s8_mm_multi_matches_pallas_mm_multi(interpret):
+    tool = _load_tool("profile_fused_shapes")
+    rng = np.random.default_rng(1)
+    M, K, N, BM, taps = 64, 128, 64, 16, 5
+    a, b = _s8(rng, (M, K)), _s8(rng, (taps, K, N))
+    want = np.asarray(tool.pallas_mm_multi(M, K, N, BM, taps)(
+        jnp.asarray(a), jnp.asarray(b)))
+    got = s8_mm_multi(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want, sum(_np_mm(a, b[t]) for t in range(taps)))
+
+
+@pytest.mark.parametrize("BM,K,N,R", [(16, 128, 64, 3), (24, 128, 128, 4),
+                                      (8, 576, 64, 2), (16, 64, 32, 0)])
+def test_chained_dot_s8_matches_pallas(interpret, BM, K, N, R):
+    tool = _load_tool("profile_inkernel_dot")
+    rng = np.random.default_rng(2)
+    a, b = _s8(rng, (BM, K)), _s8(rng, (K, N))
+    want = np.asarray(tool.chained_dot(BM, K, N, R)(jnp.asarray(a), jnp.asarray(b)))
+    got = chained_dot(torch.from_numpy(a), torch.from_numpy(b), R)
+    assert got.dtype == torch.int32 and got.shape == (BM, N)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if R:
+        # the requant step wraps: some s32 >> 8 fall outside s8
+        first = _np_mm(a, b) >> 8
+        assert (np.abs(first) > 127).any()
+
+
+@pytest.mark.parametrize("K,N", [(128, 128), (128, 64)])
+def test_chained_dot_bf16_matches_pallas(interpret, K, N):
+    tool = _load_tool("profile_inkernel_dot")
+    rng = np.random.default_rng(3)
+    BM, R = 16, 3
+    a = jnp.asarray(rng.standard_normal((BM, K)), jnp.bfloat16)
+    b = jnp.asarray(rng.standard_normal((K, N)), jnp.bfloat16)
+    want = np.asarray(tool.chained_dot(BM, K, N, R, jnp.bfloat16)(a, b))
+    ta = torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+    tb = torch.from_numpy(np.asarray(b, np.float32)).to(torch.bfloat16)
+    got = chained_dot(ta, tb, R)
+    assert got.dtype == torch.float32
+    # f32 sums in another order; a differing last bit can flip one of the
+    # bf16 roundings between the products (2**-8 relative), which the later
+    # products carry on: 2 % of the largest value.
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-2 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_tiled_mm_matches_make_pallas_mm(interpret, monkeypatch, dtype):
+    tool = _load_tool("profile_pallas_mm")
+    M, K, N, BM = 64, 256, 128, 16
+    for name, val in (("M", M), ("K", K), ("N", N), ("BM", BM)):
+        monkeypatch.setattr(tool, name, val)
+    rng = np.random.default_rng(4)
+    if dtype == "int8":
+        a, b = _s8(rng, (M, K)), _s8(rng, (K, N))
+        want = np.asarray(tool.make_pallas_mm(jnp.int8, jnp.int32)(
+            jnp.asarray(a), jnp.asarray(b)))
+        got = tiled_mm(torch.from_numpy(a), torch.from_numpy(b))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        a = jnp.asarray(rng.standard_normal((M, K)) * 0.02, jnp.bfloat16)
+        b = jnp.asarray(rng.standard_normal((K, N)) * 0.02, jnp.bfloat16)
+        want = np.asarray(tool.make_pallas_mm(jnp.bfloat16, jnp.float32)(a, b))
+        got = tiled_mm(torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16),
+                       torch.from_numpy(np.asarray(b, np.float32)).to(torch.bfloat16))
+        assert got.dtype == torch.float32
+        # bf16 products are exact in f32; only the order of the f32 sums
+        # differs: 1e-5 of the largest value at K = 256.
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 1, 1), (37, 99, 21), (130, 577, 65),
+                                   (5, 2048, 3)])
+def test_ragged_shapes_match_numpy(M, K, N):
+    """Any M, N, K; K = 2048 is past the float32-exact range, so the plain
+    version must switch to float64."""
+    rng = np.random.default_rng(5)
+    a, b = _s8(rng, (M, K)), _s8(rng, (K, N))
+    if K == 2048:  # worst case: every product +127 * 127
+        a[:], b[:] = 127, 127
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    np.testing.assert_array_equal(s8_mm(ta, tb).numpy(), _np_mm(a, b))
+    np.testing.assert_array_equal(tiled_mm(ta, tb).numpy(), _np_mm(a, b))
+    b3 = _s8(rng, (3, K, N))
+    np.testing.assert_array_equal(
+        s8_mm_multi(ta, torch.from_numpy(b3)).numpy(),
+        sum(_np_mm(a, b3[t]) for t in range(3)))
+
+
+def test_wrappers_reject_bad_arguments():
+    a, b = torch.zeros(4, 8, dtype=torch.int8), torch.zeros(8, 4, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        s8_mm(a, torch.zeros(7, 4, dtype=torch.int8))
+    with pytest.raises(TypeError):
+        s8_mm(a.float(), b.float())
+    with pytest.raises(TypeError):
+        tiled_mm(a, b.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        s8_mm_multi(a, b)  # needs [taps, K, N]
+    with pytest.raises(ValueError):
+        chained_dot(torch.zeros(4, 48, dtype=torch.int8),
+                    torch.zeros(48, 32, dtype=torch.int8), 1)  # K % N != 0
+    with pytest.raises(ValueError):
+        chained_dot(a, b, 1)  # N % 32 != 0
+    with pytest.raises(ValueError):
+        s8_mm(torch.zeros(8, dtype=torch.int8), b)
+
+
+def test_launch_counters_count_only_kernel_launches():
+    """On the CPU the plain version runs and no launch is counted."""
+    before = (s8_mm.launches, s8_mm_multi.launches, tiled_mm.launches,
+              chained_dot.launches)
+    a, b = torch.ones(4, 32, dtype=torch.int8), torch.ones(32, 32, dtype=torch.int8)
+    s8_mm(a, b), s8_mm_multi(a, b[None]), tiled_mm(a, b), chained_dot(a, b, 1)
+    assert before == (s8_mm.launches, s8_mm_multi.launches, tiled_mm.launches,
+                      chained_dot.launches)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def s8(*shape):
+        return torch.randint(-127, 128, shape, device="cuda", generator=g,
+                             dtype=torch.int8)
+
+    for M, K, N in [(115200, 576, 64), (115200, 99, 64), (300, 577, 65), (1, 1, 1)]:
+        a, b = s8(M, K), s8(K, N)
+        assert torch.equal(s8_mm(a, b), s8_mm_plain(a, b))
+        assert torch.equal(tiled_mm(a, b), tiled_mm_plain(a, b))
+    a, b = s8(14400, 128), s8(5, 128, 64)
+    assert torch.equal(s8_mm_multi(a, b), s8_mm_multi_plain(a, b))
+    a, b = s8(3600, 576), s8(576, 64)
+    assert torch.equal(chained_dot(a, b, 8), chained_dot_plain(a, b, 8))
+    a = (torch.randn(512, 2048, device="cuda", generator=g) * 0.02).bfloat16()
+    b = (torch.randn(2048, 256, device="cuda", generator=g) * 0.02).bfloat16()
+    ref = tiled_mm_plain(a, b)
+    assert float((tiled_mm(a, b) - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
