@@ -1,25 +1,25 @@
-// s8_mm: integer and bf16 matrix products for Hopper (sm_90a), by hand.
+// s8_mm: integer and bf16 matrix products for Hopper (sm_90a), by hand, on
+// mma.sync.
 //
-// Replaces the four Pallas TPU probe kernels of the JAX package:
+// Replaces two Pallas TPU probe kernels of the JAX package (the single
+// products, pallas_mm and make_pallas_mm, live in wgmma_mm.cu):
 //
-//   az_s8_mm        tools/profile_fused_shapes.py::pallas_mm
-//                   out = a @ b, s8 x s8 -> s32, a [M, K], b [K, N]
 //   az_s8_mm_multi  tools/profile_fused_shapes.py::pallas_mm_multi
-//                   out = sum_t a @ b[t], s8 -> s32, b [T, K, N]
-//   az_tiled_mm     tools/profile_pallas_mm.py::make_pallas_mm
-//                   out = a @ b, s8 -> s32 or bf16 -> f32
+//                   out = sum_t a @ b[t], s8 -> s32, a [M, K], b [T, K, N]
 //   az_chained_dot  tools/profile_inkernel_dot.py::chained_dot
 //                   R times a <- tile(requant(a @ b), K / N), then a @ b,
-//                   with `a` resident on chip for all R + 1 products
+//                   s8 -> s32 or bf16 -> f32, with `a` resident on chip for
+//                   all R + 1 products
 //
 // The TPU kernels walk a sequential grid of row tiles with the whole `b` in
-// VMEM.  Here a grid of thread blocks covers (M, N) tiles of 128 x 64, and
-// each block loops over K through a three-stage ring of shared-memory tiles
-// filled by cp.async; eight warps each own a 32 x 32 patch of the output and
-// run mma.sync (m16n8k32 s8 -> s32, m16n8k16 bf16 -> f32).  Any M is
-// taken (rows past the edge are zero-filled on load and masked on store);
-// the wrapper pads K and N to multiples of 16 elements so that every row
-// starts on a 16-byte boundary.
+// VMEM.  For the accumulated product a grid of thread blocks covers (M, N)
+// tiles of 128 x 64, and each block loops over the taps and over K through a
+// three-stage ring of shared-memory tiles filled by cp.async; eight warps
+// each own a 32 x 32 patch of the output and run mma.sync (m16n8k32 s8 ->
+// s32; the chained dot also m16n8k16 bf16 -> f32).  Any M is taken (rows
+// past the edge are zero-filled on load and masked on store); the wrapper
+// pads K and N to multiples of 16 elements so that every row starts on a
+// 16-byte boundary.
 //
 // `b` is row-major [K, N], but mma.sync wants, for each output column, four
 // (s8) or two (bf16) consecutive K values in one register.  Instead of
@@ -32,14 +32,13 @@
 // 8 (s8) or 4 (bf16) CONSECUTIVE output columns of a row and stores them as
 // 16-byte vectors.
 //
-// What bounds them on the card.  The self-play shape, the 3x3 conv in
-// im2col form [115200, 576] x [576, 64], moves 66 MB of `a` and 29 MB of
-// s32 output for 8.5 GOP: bytes bound it (about 29 us at 3.35 TB/s against
-// 4 us of int8 tensor-core time), so the design streams `a` once with
-// 16-byte asynchronous copies, re-reads the small `b` from L2, and writes
-// full 128-byte lines.  The square probe shape [8192, 2048] x [2048, 2048]
-// is bound by operations; mma.sync reaches a fraction of the wgmma rate
-// there and is kept for being simple and exact.
+// What bounds them on the card.  At the probes' shapes ([14400, 128] x
+// [5, 128, 64]; 3,600 rows chained through up to 64 products) both move a
+// few megabytes at most: the accumulated product is bound by bytes (1.7 us
+// at 3.35 TB/s) and in practice by its launch, the chained dot by
+// operations, with the chain's dependence and the fragment loads' issue
+// slots (8 + 8 32-bit loads and 12 PRMT per 8 mma) well ahead of the tensor
+// cores.  Both are kept on this simple, exact template for now.
 //
 // Integer sums wrap in int32 like the TPU kernels' (no saturation); with
 // |values| <= 127 they cannot overflow below K = 133,000.
@@ -227,7 +226,7 @@ __device__ __forceinline__ void store_patch(T* out, int M, int N, int row0,
   }
 }
 
-// ---------------------------------------------------------------- tiled mm
+// ------------------------------------------------- row-tiled, over taps
 
 constexpr int BM = 128, BN = 64, BKB = 64, STAGES = 3, THREADS = 256;
 constexpr int A_STRIDE = BKB + 16;  // +16 bytes: conflict-free fragment reads
@@ -444,13 +443,6 @@ extern "C" {
 // K and N multiples of 16.  Each launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 
-// a s8 [M, K], b s8 [K, N], out s32 [M, N].
-int az_s8_mm(const void* a, const void* b, void* out, int M, int N, int K,
-             void* stream) {
-  return launch_tiled<1>(a, b, out, M, N, K, 1,
-                         static_cast<cudaStream_t>(stream));
-}
-
 // a s8 [M, K], b s8 [taps, K, N], out s32 [M, N].
 int az_s8_mm_multi(const void* a, const void* b, void* out, int M, int N, int K,
                    int taps, void* stream) {
@@ -458,16 +450,8 @@ int az_s8_mm_multi(const void* a, const void* b, void* out, int M, int N, int K,
                          static_cast<cudaStream_t>(stream));
 }
 
+// a [M, K], b [K, N], out [M, N]; N a multiple of 32, K a multiple of N;
 // elem_size 1: s8 -> s32; elem_size 2: bf16 -> f32.
-int az_tiled_mm(const void* a, const void* b, void* out, int M, int N, int K,
-                int elem_size, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (elem_size == 1) return launch_tiled<1>(a, b, out, M, N, K, 1, s);
-  if (elem_size == 2) return launch_tiled<2>(a, b, out, M, N, K, 1, s);
-  return cudaErrorInvalidValue;
-}
-
-// a [M, K], b [K, N], out [M, N]; N a multiple of 32, K a multiple of N.
 int az_chained_dot(const void* a, const void* b, void* out, int M, int N, int K,
                    int R, int elem_size, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,0 +1,780 @@
+// wgmma_mm: the two matrix products that carry the most work, rebuilt around
+// Hopper's own machinery (sm_90a): wgmma from swizzled shared memory, TMA
+// loads that complete on mbarriers, a ring of stages, persistent blocks.
+//
+// Replaces two Pallas TPU probe kernels of the JAX package:
+//
+//   az_s8_mm_resident  tools/profile_fused_shapes.py::pallas_mm
+//                      out = a @ b, s8 x s8 -> s32, a [M, K], b [K, N <= 128]
+//                      with all of `b` resident in shared memory
+//   az_wgmma_tiled     tools/profile_pallas_mm.py::make_pallas_mm
+//                      out = a @ b, s8 -> s32 or bf16 -> f32, any size
+//                      (also takes s8_mm when `b` is too large to be resident)
+//
+// What bounds them on the card, and what the designs do about it.
+//
+// The int8 trunk's shapes ([115200, 576] x [576, 64] for a 3x3 conv) are
+// bound by bytes: 66 MB of `a` in and 29 MB of s32 out for 8.5 GOP, about
+// 29 us at 3.35 TB/s against 4 us of tensor-core time.  The work is
+// streaming `a` once and writing the output once, so the resident kernel runs
+// one persistent block per SM that loads `b` ONCE, keeps it for every row
+// tile, and walks row tiles of `a` strided by the grid.  `a` arrives through
+// a ring of [128 rows x 128 bytes] TMA boxes (16 KB a stage, up to 8 stages
+// in flight per SM) issued by one producer thread; two consumer warpgroups
+// take 64 rows each and run wgmma m64nNk32 with both operands read from
+// shared memory.  While they store a tile's s32 output straight from their
+// registers (each quad of lanes writes one full 32-byte sector), the
+// producer is already filling the ring with the next tiles' loads.
+//
+// The square probe shape [8192, 2048] x [2048, 2048] is bound by operations
+// (35 us s8, 69 us bf16 at the tensor cores' peak).  The tiled kernel is the
+// usual Hopper shape: 128 x 256 output tiles, K steps of 128 bytes, a
+// four-stage ring (16 KB of `a` + 32 KB of `b` a stage), one producer thread
+// issuing TMA, two consumer warpgroups each holding a 64 x 256 accumulator
+// (128 registers a thread; setmaxnreg moves the producer's registers to
+// them), persistent over the tiles so that the next tile's loads are in
+// flight during a tile's stores.  A stage is released one wgmma group late
+// (wait_group 1), so the tensor cores always have a group queued.
+//
+// `b` is row-major [K, N]: N is contiguous.  For bf16, wgmma takes that as it
+// lies (the descriptor's MN-major canonical layout and the instruction's
+// transpose bit).  For 8-bit types wgmma takes only K-major operands, so the
+// s8 `b` has to be transposed:
+//   * resident kernel: inside the block, once per block.  The consumer
+//     threads read 4 x 4 byte blocks of `b`, transpose them in registers
+//     with PRMT and write them K-major into the 128-byte-swizzled layout the
+//     descriptor names (N padded up to 32 / 64 / 128 there, K up to 32, with
+//     zeros; no padded copy of `b` is made by the caller).  36 KB x 132
+//     blocks out of L2 is nothing beside the 95 MB the call moves.
+//   * tiled kernel: a small transposition kernel in this file writes `b` as
+//     [N, K] into scratch the caller allocates, and the product then loads it
+//     by TMA like `a`.  4 MB each way takes a few microseconds against a 35 us
+//     bound; doing it inside the block instead would put 256 x 128 PRMT
+//     transpositions between every stage's arrival and its wgmma, on the
+//     critical path of a kernel that is bound by issue slots and tensor time.
+//
+// Ragged edges.  A tensor map knows the true M, N and K: a box that reaches
+// past them is zero-filled by the TMA unit, so no padded copy is needed for
+// size.  What TMA does need is a 16-byte aligned base and a row pitch that
+// is a multiple of 16 bytes; the caller passes the pitch (`lda`, `ldb`) and
+// copies a matrix only when its own pitch or base does not qualify (the
+// stem's K = 99 when it arrives densely packed).  Stores are masked by row
+// and column and go out as 8-byte pairs when N is even, else one by one.
+//
+// Integer sums wrap in int32 (no .satfinite), like the TPU kernels'.
+
+#include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef unsigned char byte_t;
+
+constexpr int WG_THREADS = 128;          // one warpgroup
+constexpr int THREADS = 3 * WG_THREADS;  // two consumer warpgroups + producer
+constexpr int PRODUCER_THREAD = 2 * WG_THREADS;
+constexpr int BM = 128;                  // rows of `a` per tile, 64 a warpgroup
+constexpr int ROW_BYTES = 128;           // K extent of a stage: one swizzle row
+constexpr int A_STAGE = BM * ROW_BYTES;  // 16 KB
+constexpr int HALF_A = 64 * ROW_BYTES;   // the second warpgroup's rows
+constexpr int SMEM_MAX = 232448;         // bytes a block may use on sm_90
+
+// Resident kernel: `b` may take this much shared memory, the ring the rest.
+constexpr int RESIDENT_B_MAX = 96 * 1024;
+constexpr int R_STAGES = 8;
+constexpr int R_SMEM_FIXED = 1024 + R_STAGES * A_STAGE + 16 * R_STAGES;
+static_assert(R_SMEM_FIXED + RESIDENT_B_MAX <= SMEM_MAX, "ring + b must fit");
+
+// Tiled kernel.
+constexpr int TN = 256;                  // output columns per tile
+constexpr int B_STAGE = TN * ROW_BYTES;  // 32 KB in either layout
+constexpr int T_STAGES = 4;
+constexpr int T_STAGE = A_STAGE + B_STAGE;
+constexpr int T_SMEM = 1024 + T_STAGES * T_STAGE + 16 * T_STAGES;
+static_assert(T_SMEM <= SMEM_MAX, "the tiled kernel's ring must fit");
+
+// ------------------------------------------------------------------ PTX
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Returns once the barrier's phase of the given parity is complete.  A new
+// barrier counts as having completed a phase of parity 1.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of the tensor map at element coordinates (c0 inner, c1 outer) into
+// shared memory; its bytes are counted on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Orders ordinary shared-memory stores before reads by the async proxy
+// (wgmma reading its operands).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int PENDING> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Keeps the compiler from moving accumulator accesses across a wgmma batch.
+__device__ __forceinline__ void fence_reg(int32_t& x) {
+  asm volatile("" : "+r"(x)::"memory");
+}
+
+__device__ __forceinline__ void fence_reg(float& x) {
+  asm volatile("" : "+f"(x)::"memory");
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void fence_acc(T (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_reg(d[i]);
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle.  `addr` is a shared
+// address inside a 1024-byte aligned tile; offsets are in bytes.
+//   K-major (rows of 128 bytes of K, 8-row groups 1024 bytes apart):
+//     lbo unused (1), sbo = 1024; 32 bytes further along K: addr + 32.
+//   MN-major (K rows of 128 bytes = 64 bf16 of N, 8 K rows 1024 bytes apart):
+//     lbo = distance between 64-column blocks, sbo = 1024; 16 further along
+//     K: addr + 16 * 128.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+#define AZ_L0 "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15"
+#define AZ_L1 "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
+#define AZ_L2 "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47"
+#define AZ_L3 "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63"
+#define AZ_L4 "%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79"
+#define AZ_L5 "%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95"
+#define AZ_L6 \
+  "%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110,%111"
+#define AZ_L7                                                                  \
+  "%112,%113,%114,%115,%116,%117,%118,%119,%120,%121,%122,%123,%124,%125,%126," \
+  "%127"
+#define AZ_O4(c, d, i) c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3])
+#define AZ_O16(c, d, i) \
+  AZ_O4(c, d, i), AZ_O4(c, d, i + 4), AZ_O4(c, d, i + 8), AZ_O4(c, d, i + 12)
+#define AZ_O32(c, d, i) AZ_O16(c, d, i), AZ_O16(c, d, i + 16)
+#define AZ_O64(c, d, i) AZ_O32(c, d, i), AZ_O32(c, d, i + 32)
+#define AZ_O128(c, d, i) AZ_O64(c, d, i), AZ_O64(c, d, i + 64)
+
+// d (+)= A x B for one 64-row tile of A: m64nNk32, s8 x s8 -> s32, both
+// operands K-major in shared memory.  scale_d == 0 overwrites d.
+template <int N> struct S8Mma;
+
+template <> struct S8Mma<32> {
+  static __device__ __forceinline__ void run(int32_t (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {" AZ_L0
+        "}, %16, %17, p;\n}\n"
+        : AZ_O16("+r", d, 0)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <> struct S8Mma<64> {
+  static __device__ __forceinline__ void run(int32_t (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {" AZ_L0 "," AZ_L1
+        "}, %32, %33, p;\n}\n"
+        : AZ_O32("+r", d, 0)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <> struct S8Mma<128> {
+  static __device__ __forceinline__ void run(int32_t (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" AZ_L0 "," AZ_L1
+        "," AZ_L2 "," AZ_L3 "}, %64, %65, p;\n}\n"
+        : AZ_O64("+r", d, 0)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <> struct S8Mma<256> {
+  static __device__ __forceinline__ void run(int32_t (&d)[128], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {" AZ_L0 "," AZ_L1
+        "," AZ_L2 "," AZ_L3 "," AZ_L4 "," AZ_L5 "," AZ_L6 "," AZ_L7
+        "}, %128, %129, p;\n}\n"
+        : AZ_O128("+r", d, 0)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+// m64n256k16, bf16 x bf16 -> f32; A K-major, B MN-major (transpose bit set).
+__device__ __forceinline__ void bf16_mma_256(float (&d)[128], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" AZ_L0 "," AZ_L1
+      "," AZ_L2 "," AZ_L3 "," AZ_L4 "," AZ_L5 "," AZ_L6 "," AZ_L7
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : AZ_O128("+f", d, 0)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// ------------------------------------------------------------ shared pieces
+
+// The 4 x 4 byte block of row-major b [K, N] at (k, n), transposed: w[j]
+// holds b[k..k+3][n + j], lowest k in the lowest byte; zeros outside b.
+// `vec`: N % 4 == 0 and b is 4-byte aligned (n is always a multiple of 4).
+__device__ __forceinline__ void load_bt4(const byte_t* __restrict__ b, int K,
+                                         int N, int k, int n, bool vec,
+                                         uint32_t (&w)[4]) {
+  uint32_t r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    r[i] = 0;
+    if (k + i < K && n < N) {
+      const byte_t* p = b + static_cast<size_t>(k + i) * N + n;
+      if (vec) {
+        r[i] = __ldg(reinterpret_cast<const uint32_t*>(p));
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (n + c < N) r[i] |= static_cast<uint32_t>(__ldg(p + c)) << (8 * c);
+      }
+    }
+  }
+  const uint32_t x0 = __byte_perm(r[0], r[1], 0x5140);  // r0.0 r1.0 r0.1 r1.1
+  const uint32_t x1 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t y0 = __byte_perm(r[0], r[1], 0x7362);  // r0.2 r1.2 r0.3 r1.3
+  const uint32_t y1 = __byte_perm(r[2], r[3], 0x7362);
+  w[0] = __byte_perm(x0, x1, 0x5410);
+  w[1] = __byte_perm(x0, x1, 0x7632);
+  w[2] = __byte_perm(y0, y1, 0x5410);
+  w[3] = __byte_perm(y0, y1, 0x7632);
+}
+
+__device__ __forceinline__ void st2(int32_t* p, int32_t x, int32_t y) {
+  *reinterpret_cast<int2*>(p) = make_int2(x, y);
+}
+
+__device__ __forceinline__ void st2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+// One thread's share of a 64 x (2 * NREG) accumulator to row-major out
+// [M, N].  Register 4j + 2h + e is row `row0 + 8h`, column `col0 + 8j + e`
+// (row0 = tile row + 16 * warp + lane / 4, col0 = tile column + 2 * (lane %
+// 4)); rows >= M and columns >= N are masked.  `pairs`: N is even and out is
+// 8-byte aligned, so a register pair goes out as one 8-byte store.
+template <typename T, int NREG>
+__device__ __forceinline__ void store_acc(T* __restrict__ out, int M, int N,
+                                          bool pairs, int row0, int col0,
+                                          const T (&d)[NREG]) {
+#pragma unroll
+  for (int j = 0; j < NREG / 4; ++j) {
+    const int col = col0 + 8 * j;
+    if (col >= N) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= M) continue;
+      T* p = out + static_cast<size_t>(row) * N + col;
+      if (pairs) {
+        st2(p, d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+      } else {
+        p[0] = d[4 * j + 2 * h];
+        if (col + 1 < N) p[1] = d[4 * j + 2 * h + 1];
+      }
+    }
+  }
+}
+
+struct Ring {  // position in a ring of stages; the parity flips on each wrap
+  uint32_t stage = 0, phase = 0;
+  __device__ __forceinline__ void advance(uint32_t stages) {
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// ------------------------------------------------- s8, `b` resident on chip
+
+// Shared memory (from a 1024-byte aligned base):
+//   bt    panels x [NP rows (n)][128 bytes of K], 128-byte swizzled
+//   ring  R_STAGES x [128 rows of a][128 bytes of K], as TMA writes them
+//   bars  full[R_STAGES], empty[R_STAGES]
+template <int NP>
+__global__ void __launch_bounds__(THREADS, 1)
+s8_resident_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const byte_t* __restrict__ b, int32_t* __restrict__ out,
+                   int M, int N, int K, int b_vec, int out_pairs) {
+  extern __shared__ byte_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  byte_t* const sm = smem_raw + (base - raw);
+
+  const int panels = (K + ROW_BYTES - 1) / ROW_BYTES;
+  const int panel_bytes = NP * ROW_BYTES;
+  const uint32_t bt = base;
+  const uint32_t ring = bt + panels * panel_bytes;
+  const uint32_t full = ring + R_STAGES * A_STAGE;
+  const uint32_t empty = full + 8 * R_STAGES;
+  const int tiles = (M + BM - 1) / BM;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);   // the producer's arrive + the box's bytes
+      mbar_init(empty + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 2) {
+    // Producer: one thread keeps the ring full, across tiles.
+    if (threadIdx.x == PRODUCER_THREAD) {
+      Ring r;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        for (int p = 0; p < panels; ++p) {
+          mbar_wait(empty + 8 * r.stage, r.phase ^ 1);
+          mbar_expect_tx(full + 8 * r.stage, A_STAGE);
+          tma_load_2d(ring + r.stage * A_STAGE, &map_a, full + 8 * r.stage,
+                      p * ROW_BYTES, tile * BM);
+          r.advance(R_STAGES);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers.  First bring b in, transposed to K-major and swizzled: item
+  // (k4, n4) is the 4 x 4 block at k = 4 k4, n = 4 n4.  K is covered up to
+  // the last 32-byte wgmma step, N up to NP, both with zeros.
+  {
+    const int ksteps = (K + 31) / 32;
+    const int items = ksteps * 8 * (NP / 4);
+    for (int i = threadIdx.x; i < items; i += 2 * WG_THREADS) {
+      const int n = (i % (NP / 4)) * 4, k = (i / (NP / 4)) * 4;
+      uint32_t w[4];
+      load_bt4(b, K, N, k, n, b_vec != 0, w);
+      const int kk = k % ROW_BYTES;
+      byte_t* panel = sm + (k / ROW_BYTES) * panel_bytes;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = n + j;
+        const int off =
+            row * ROW_BYTES + ((((kk >> 4) ^ (row & 7)) << 4) | (kk & 15));
+        *reinterpret_cast<uint32_t*>(panel + off) = w[j];
+      }
+    }
+    fence_proxy_async();
+    consumers_sync();
+  }
+
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % WG_THREADS) / 32;
+  const int last_steps = ((K - (panels - 1) * ROW_BYTES) + 31) / 32;
+  int32_t acc[NP / 2] = {};
+  Ring r;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    for (int p = 0; p < panels; ++p) {
+      mbar_wait(full + 8 * r.stage, r.phase);
+      const uint64_t da =
+          make_desc(ring + r.stage * A_STAGE + wg * HALF_A, 16, 1024);
+      const uint64_t db = make_desc(bt + p * panel_bytes, 16, 1024);
+      const int steps = p == panels - 1 ? last_steps : 4;
+      fence_acc(acc);
+      wgmma_fence();
+      for (int ks = 0; ks < steps; ++ks)
+        S8Mma<NP>::run(acc, da + 2 * ks, db + 2 * ks, (p | ks) != 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (threadIdx.x % WG_THREADS == 0) mbar_arrive(empty + 8 * r.stage);
+      r.advance(R_STAGES);
+    }
+    store_acc(out, M, N, out_pairs != 0,
+              tile * BM + wg * 64 + warp * 16 + lane / 4, 2 * (lane % 4), acc);
+  }
+}
+
+// ----------------------------------------------------------- tiled product
+
+// bt [N, ldbt] <- b [K, N] (s8), through a 64 (n) x 128 (k) shared tile:
+// reads run along N, writes along K, both in 4-byte words.
+__global__ void __launch_bounds__(256)
+transpose_s8_kernel(const byte_t* __restrict__ b, byte_t* __restrict__ bt,
+                    int K, int N, int ldbt, int b_vec) {
+  __shared__ uint32_t tile[64][33];
+  const int k0 = blockIdx.x * 128, n0 = blockIdx.y * 64;
+  for (int i = threadIdx.x; i < 32 * 16; i += 256) {
+    const int n4 = i % 16, k4 = i / 16;
+    uint32_t w[4];
+    load_bt4(b, K, N, k0 + 4 * k4, n0 + 4 * n4, b_vec != 0, w);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) tile[4 * n4 + j][k4] = w[j];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 64 * 32; i += 256) {
+    const int kw = i % 32, n = i / 32;
+    if (n0 + n < N && k0 + 4 * kw < ldbt)
+      *reinterpret_cast<uint32_t*>(bt + static_cast<size_t>(n0 + n) * ldbt + k0 +
+                                   4 * kw) = tile[n][kw];
+  }
+}
+
+template <int ES> struct Acc;  // ES: bytes per input element
+template <> struct Acc<1> { typedef int32_t type; };
+template <> struct Acc<2> { typedef float type; };
+
+// Shared memory (from a 1024-byte aligned base): T_STAGES x { a [128 rows]
+// [128 bytes of K];  b: s8 [256 rows (n)][128 bytes of K], bf16 four blocks
+// of [64 K rows][128 bytes = 64 columns] }, then full[], empty[].
+template <int ES>
+__global__ void __launch_bounds__(THREADS, 1)
+wgmma_tiled_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_b,
+                   typename Acc<ES>::type* __restrict__ out, int M, int N,
+                   int K, int tiles_n, int tiles, int out_pairs) {
+  typedef typename Acc<ES>::type acc_t;
+  extern __shared__ byte_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full = base + T_STAGES * T_STAGE;
+  const uint32_t empty = full + 8 * T_STAGES;
+  constexpr int BK = ROW_BYTES / ES;  // elements of K per stage
+  const int ksteps = (K + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == PRODUCER_THREAD) {
+      Ring r;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * TN;
+        for (int kt = 0; kt < ksteps; ++kt) {
+          const uint32_t bar = full + 8 * r.stage;
+          const uint32_t sa = base + r.stage * T_STAGE, sb = sa + A_STAGE;
+          mbar_wait(empty + 8 * r.stage, r.phase ^ 1);
+          mbar_expect_tx(bar, T_STAGE);
+          tma_load_2d(sa, &map_a, bar, kt * BK, m0);
+          if constexpr (ES == 1) {
+            tma_load_2d(sb, &map_b, bar, kt * BK, n0);  // bt [N, K]
+          } else {
+#pragma unroll
+            for (int j = 0; j < TN / 64; ++j)  // b [K, N], 64 columns a box
+              tma_load_2d(sb + j * (BK * ROW_BYTES), &map_b, bar, n0 + 64 * j,
+                          kt * BK);
+          }
+          r.advance(T_STAGES);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % WG_THREADS) / 32;
+    const bool elected = threadIdx.x % WG_THREADS == 0;
+    acc_t acc[TN / 2] = {};
+    Ring r;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * TN;
+      uint32_t prev = 0;
+      for (int kt = 0; kt < ksteps; ++kt) {
+        const uint32_t sa = base + r.stage * T_STAGE, sb = sa + A_STAGE;
+        mbar_wait(full + 8 * r.stage, r.phase);
+        const uint64_t da = make_desc(sa + wg * HALF_A, 16, 1024);
+        fence_acc(acc);
+        wgmma_fence();
+        if constexpr (ES == 1) {
+          const uint64_t db = make_desc(sb, 16, 1024);
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            S8Mma<TN>::run(acc, da + 2 * ks, db + 2 * ks, (kt | ks) != 0);
+        } else {
+          const uint64_t db = make_desc(sb, BK * ROW_BYTES, 1024);
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            bf16_mma_256(acc, da + 2 * ks, db + ks * ((16 * ROW_BYTES) >> 4),
+                         (kt | ks) != 0);
+        }
+        wgmma_commit();
+        // The stage before this one is free once its group is complete;
+        // this stage's group stays queued behind it.
+        wgmma_wait<1>();
+        if (kt > 0 && elected) mbar_arrive(empty + 8 * prev);
+        prev = r.stage;
+        r.advance(T_STAGES);
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (elected) mbar_arrive(empty + 8 * prev);
+      store_acc(out, M, N, out_pairs != 0,
+                m0 + wg * 64 + warp * 16 + lane / 4, n0 + 2 * (lane % 4), acc);
+    }
+  }
+}
+
+// ------------------------------------------------------------------- host
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda; it is looked up through the
+// runtime at first use, so nothing links against libcuda.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// A map over a row-major matrix of `outer` rows of `inner` elements, rows
+// `pitch_bytes` apart, read in boxes of box_outer x box_inner elements (a box
+// row is at most 128 bytes), 128-byte swizzled, zero-filled past the edges.
+cudaError_t make_map(CUtensorMap* map, int es, const void* base, int inner,
+                     int outer, long long pitch_bytes, int box_inner,
+                     int box_outer) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult res = encode(
+      map, es == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(base), dims, strides, box, elem_strides,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+int sm_count() {
+  static int n = [] {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 0;
+    return sms;
+  }();
+  return n;
+}
+
+// Allow a kernel the block's full dynamic shared memory.
+template <typename Kernel> cudaError_t allow_smem(Kernel kernel) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+}
+
+bool tma_ok(const void* p, long long pitch_bytes) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && pitch_bytes % 16 == 0;
+}
+
+bool pairs_ok(const void* out, int N) {
+  return N % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
+}
+
+bool words_ok(const void* b, int N) {
+  return N % 4 == 0 && reinterpret_cast<uintptr_t>(b) % 4 == 0;
+}
+
+template <int NP>
+cudaError_t launch_resident(const CUtensorMap& map_a, const byte_t* b,
+                            int32_t* out, int M, int N, int K, size_t smem,
+                            cudaStream_t stream) {
+  static const cudaError_t allowed = allow_smem(s8_resident_kernel<NP>);
+  if (allowed != cudaSuccess) return allowed;
+  const int tiles = (M + BM - 1) / BM;
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  s8_resident_kernel<NP><<<grid, THREADS, smem, stream>>>(
+      map_a, b, out, M, N, K, words_ok(b, N), pairs_ok(out, N));
+  return cudaGetLastError();
+}
+
+template <int ES>
+cudaError_t launch_tiled(const void* a, const void* b, void* bt, void* out,
+                         int M, int N, int K, int lda, int ldb,
+                         cudaStream_t stream) {
+  typedef typename Acc<ES>::type acc_t;
+  constexpr int BK = ROW_BYTES / ES;
+  if (!tma_ok(a, static_cast<long long>(lda) * ES) || lda < K)
+    return cudaErrorInvalidValue;
+  CUtensorMap map_a, map_b;
+  cudaError_t err = make_map(&map_a, ES, a, K, M,
+                             static_cast<long long>(lda) * ES, BK, BM);
+  if (err != cudaSuccess) return err;
+  if constexpr (ES == 1) {
+    // b [K, N] dense -> bt [N, ldbt], then loaded like `a`.
+    const int ldbt = (K + 15) / 16 * 16;
+    if (bt == nullptr || !tma_ok(bt, ldbt) || ldb != N)
+      return cudaErrorInvalidValue;
+    const dim3 tgrid((K + 127) / 128, (N + 63) / 64);
+    if (tgrid.y > 65535) return cudaErrorInvalidValue;
+    transpose_s8_kernel<<<tgrid, 256, 0, stream>>>(
+        static_cast<const byte_t*>(b), static_cast<byte_t*>(bt), K, N, ldbt,
+        words_ok(b, N));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = make_map(&map_b, ES, bt, K, N, ldbt, BK, TN);
+  } else {
+    if (!tma_ok(b, static_cast<long long>(ldb) * ES) || ldb < N)
+      return cudaErrorInvalidValue;
+    err = make_map(&map_b, ES, b, N, K, static_cast<long long>(ldb) * ES, 64,
+                   BK);
+  }
+  if (err != cudaSuccess) return err;
+  static const cudaError_t allowed = allow_smem(wgmma_tiled_kernel<ES>);
+  if (allowed != cudaSuccess) return allowed;
+  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + TN - 1) / TN;
+  const long long tiles = static_cast<long long>(tiles_m) * tiles_n;
+  if (tiles > 0x7fffffff || sm_count() <= 0) return cudaErrorInvalidValue;
+  const int grid = tiles < sm_count() ? static_cast<int>(tiles) : sm_count();
+  wgmma_tiled_kernel<ES><<<grid, THREADS, T_SMEM, stream>>>(
+      map_a, map_b, static_cast<acc_t*>(out), M, N, K, tiles_n,
+      static_cast<int>(tiles), pairs_ok(out, N));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Every function launches on `stream`, allocates nothing and returns
+// cudaGetLastError() (0 on success).  `a` is row-major with rows `lda`
+// elements apart; its base must be 16-byte aligned and its pitch a multiple
+// of 16 bytes.  `out` [M, N] is dense.
+
+// The largest K x N the resident kernel takes, as bytes of shared memory for
+// b: ceil(K / 128) * 128 * NP with NP = 32, 64 or 128 >= N.
+int az_resident_b_max() { return RESIDENT_B_MAX; }
+
+// Dynamic shared memory of one block: the tiled kernel's, and the resident
+// kernel's apart from b.
+int az_tiled_smem() { return T_SMEM; }
+int az_resident_smem_fixed() { return R_SMEM_FIXED; }
+
+// a s8 [M, K], b s8 [K, N] dense (any alignment), N <= 128, out s32.
+int az_s8_mm_resident(const void* a, const void* b, void* out, int M, int N,
+                      int K, int lda, void* stream) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  if (K <= 0 || N > 128 || lda < K || !tma_ok(a, lda) || sm_count() <= 0)
+    return cudaErrorInvalidValue;
+  const int np = N <= 32 ? 32 : N <= 64 ? 64 : 128;
+  const int b_bytes = (K + ROW_BYTES - 1) / ROW_BYTES * ROW_BYTES * np;
+  if (b_bytes > RESIDENT_B_MAX) return cudaErrorInvalidValue;
+  const size_t smem = R_SMEM_FIXED + b_bytes;
+  CUtensorMap map_a;
+  cudaError_t err = make_map(&map_a, 1, a, K, M, lda, ROW_BYTES, BM);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const byte_t* bp = static_cast<const byte_t*>(b);
+  int32_t* op = static_cast<int32_t*>(out);
+  if (np == 32) return launch_resident<32>(map_a, bp, op, M, N, K, smem, s);
+  if (np == 64) return launch_resident<64>(map_a, bp, op, M, N, K, smem, s);
+  return launch_resident<128>(map_a, bp, op, M, N, K, smem, s);
+}
+
+// elem_size 1: s8 -> s32, b [K, N] dense (ldb == N) and `bt` scratch of
+// N x round_up(K, 16) bytes, 16-byte aligned; elem_size 2: bf16 -> f32, b
+// rows `ldb` elements apart with a 16-byte aligned base and pitch, bt unused.
+int az_wgmma_tiled(const void* a, const void* b, void* bt, void* out, int M,
+                   int N, int K, int lda, int ldb, int elem_size, void* stream) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  if (K <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (elem_size == 1) return launch_tiled<1>(a, b, bt, out, M, N, K, lda, ldb, s);
+  if (elem_size == 2) return launch_tiled<2>(a, b, bt, out, M, N, K, lda, ldb, s);
+  return cudaErrorInvalidValue;
+}
+
+const char* az_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -236,7 +236,10 @@ def _im2col(xq, kh: int, kw: int):
     """[B*H*W, kh*kw*C] matrix of the SAME-padded ``kh x kw`` patches of an
     NHWC s8 tensor, columns in ``(ky, kx, c)`` order: one zero-pad and one
     strided copy, no arithmetic.  Where C is a multiple of 4 the copy moves
-    4-byte words (a third of the byte-wise copy's time on an H100)."""
+    4-byte words (a third of the byte-wise copy's time on an H100).  The
+    matrix's rows lie a multiple of 16 bytes apart: where ``kh*kw*C`` is none
+    (the stem's 99) the result is the first columns of a wider buffer, which
+    ``s8_mm`` reads in place instead of copying it to such a pitch."""
     B, H, W, C = xq.shape
     xp = F.pad(xq, (0, 0, kw // 2, kw // 2, kh // 2, kh // 2))
     if C % 4 == 0:
@@ -244,7 +247,14 @@ def _im2col(xq, kh: int, kw: int):
     sB, sH, sW, sC = xp.stride()
     cols = xp.as_strided((B, H, W, kh, kw, xp.shape[3]),
                          (sB, sH, sW, sH, sW, sC))
-    return cols.reshape(B * H * W, -1).view(torch.int8)
+    K = kh * kw * C
+    pitch = -(-K // 16) * 16
+    if pitch == K:
+        return cols.reshape(B * H * W, -1).view(torch.int8)
+    buf = xq.new_empty((B * H * W, pitch))
+    dst = buf.view(xp.dtype)[:, :K // xp.element_size()]
+    dst.view(B, H, W, kh, kw, xp.shape[3]).copy_(cols)
+    return buf[:, :K]
 
 
 def _conv_i8(xq, wq):

@@ -15,7 +15,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -75,6 +77,39 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         _LIBS[name] = ctypes.CDLL(str(_target(name)))
     return _LIBS[name]
+
+
+def _cuda_bin(name: str) -> str:
+    return str(Path(_nvcc()).with_name(name))
+
+
+def machine_code(name: str) -> Optional[str]:
+    """The SASS of the built library for ``csrc/<name>.cu`` (``cuobjdump``),
+    or None where the toolkit has no ``cuobjdump``."""
+    build([name])
+    if not Path(_cuda_bin("cuobjdump")).is_file():
+        return None
+    return subprocess.run([_cuda_bin("cuobjdump"), "-sass", str(_target(name))],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def demangle(symbol: str) -> str:
+    """A kernel's readable name (``cu++filt``), or the symbol itself."""
+    if not Path(_cuda_bin("cu++filt")).is_file():
+        return symbol
+    out = subprocess.run([_cuda_bin("cu++filt"), symbol], capture_output=True,
+                         text=True).stdout.strip()
+    return out or symbol
+
+
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_of(x: torch.Tensor) -> int:
+    """The current CUDA stream of ``x``'s device, as a C entry point takes it."""
+    if _raw_stream is not None:
+        return _raw_stream(x.device.index)
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

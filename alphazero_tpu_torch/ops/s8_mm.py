@@ -10,29 +10,42 @@ Counterparts of the JAX package's four Pallas probe kernels:
 ``s8_mm`` is also the product under every convolution of the int8 executor
 (``models/quant.py``): PyTorch has no s8 x s8 -> s32 convolution on CUDA.
 
-On a CUDA tensor each wrapper launches its kernel in ``csrc/s8_mm.cu``
-(built at first use) or raises; on a CPU tensor it takes the plain version
-beside it (``*_plain``).  ``<wrapper>.launches`` counts kernel launches.
-Any M, N and K are taken: the wrapper zero-pads K and N to multiples of 16
-elements (rows must start on 16-byte boundaries); the kernel masks ragged M.
+On a CUDA tensor each wrapper launches its kernel (built at first use) or
+raises; on a CPU tensor it takes the plain version beside it (``*_plain``).
+``<wrapper>.launches`` counts calls that launched a kernel.  Any M, N and K
+are taken.
 
-The plain versions are exact for s8: products of values in [-127, 127]
-summed in float32 stay integers below 2**24 while ``K * 127**2 < 2**24``
-(K <= 1040, every shape of the int8 trunk), whatever the order of
+``s8_mm`` and ``tiled_mm`` run the wgmma / TMA kernels of
+``csrc/wgmma_mm.cu``.  ``s8_mm`` takes the kernel that keeps all of ``b``
+in shared memory where ``b`` fits (``s8_mm_route``: N <= 128 and the padded
+``b`` within ``RESIDENT_B_MAX`` bytes) and the tiled kernel otherwise;
+``tiled_mm`` always takes the tiled kernel, which for s8 first transposes
+``b`` into scratch (a second launch of the same call).  Their tensor maps
+know the true sizes, so nothing is padded for size; a matrix is copied only
+when the TMA unit cannot read it as it lies (``_rows16``: a base or a row
+pitch that is no multiple of 16 bytes, such as K = 99 packed densely).
+``s8_mm_multi`` and ``chained_dot`` run the ``mma.sync`` kernels of
+``csrc/s8_mm.cu``, which want K and N zero-padded to multiples of 16.
+
+The plain versions are exact for s8: products of values in [-128, 127]
+summed in float32 stay integers below 2**24 while ``K * 128**2 <= 2**24``
+(K <= 1024, every shape of the int8 trunk), whatever the order of
 summation, as long as ``torch.backends.cuda.matmul.allow_tf32`` stays False
 (its default); for a longer K they sum in float64 (exact below 2**53).
 """
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
 
 from alphazero_tpu_torch.ops import _build
 
-_ALIGN = 16  # elements: K and N are padded to multiples of this
-_F32_EXACT_K = (1 << 24) // (127 * 127)  # 1040
+_ALIGN = 16  # elements: the mma.sync kernels want K and N padded to this
+_F32_EXACT_K = (1 << 24) // (128 * 128)  # 1024
+RESIDENT_B_MAX = 96 * 1024  # bytes; RESIDENT_B_MAX of csrc/wgmma_mm.cu
 _SMEM_MAX = 232448  # bytes of shared memory one block may use on sm_90
 _CD_ROWS = 64  # rows of `a` per block in the chained-dot kernel
 
@@ -41,7 +54,7 @@ _CD_ROWS = 64  # rows of `a` per block in the chained-dot kernel
 
 def _int_matmul(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
     """Exact integer product through a float matmul; ``terms`` products of
-    magnitude <= 127**2 are summed per output."""
+    magnitude <= 128**2 are summed per output."""
     dt = torch.float32 if terms <= _F32_EXACT_K else torch.float64
     return a.to(dt) @ b.to(dt)
 
@@ -76,11 +89,91 @@ def chained_dot_plain(a: torch.Tensor, b: torch.Tensor, R: int) -> torch.Tensor:
     return tiled_mm_plain(a, b)
 
 
+# ------------------------------------------------------------------- routing
+
+def resident_b_bytes(N: int, K: int) -> int:
+    """Shared memory the resident kernel needs for ``b [K, N]``: panels of
+    128 bytes of K for N padded up to 32, 64 or 128 rows."""
+    padded_n = 32 if N <= 32 else 64 if N <= 64 else 128
+    return -(-K // 128) * 128 * padded_n
+
+
+def s8_mm_route(N: int, K: int) -> str:
+    """The kernel ``s8_mm`` takes for ``[M, K] x [K, N]`` on the card, a
+    pure function of the shape: ``"resident"`` where all of ``b`` fits one
+    block's shared memory beside the ring of ``a`` tiles, else ``"tiled"``."""
+    if N <= 128 and resident_b_bytes(N, K) <= RESIDENT_B_MAX:
+        return "resident"
+    return "tiled"
+
+
+def kernel_accepts(route: str, M: int, N: int, K: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel behind ``route`` takes the shape (the checks its C
+    entry point makes, after ``_rows16`` has seen to alignment)."""
+    if min(M, N) <= 0:
+        return True  # nothing to compute, nothing is launched
+    if K <= 0:
+        return False
+    if route == "resident":
+        return (dtype == torch.int8 and N <= 128
+                and resident_b_bytes(N, K) <= RESIDENT_B_MAX)
+    if route == "tiled":
+        # the s8 transposition's grid spans N in blocks of 64
+        return (dtype == torch.bfloat16
+                or (dtype == torch.int8 and -(-N // 64) <= 65535))
+    raise ValueError(f"unknown route {route!r}")
+
+
+# Plain twins of the two ways the kernels turn the row-major s8 ``b [K, N]``
+# into the K-major operand wgmma wants; the tests hold them against numpy.
+
+def swizzled_offset(row: int, kbyte: int) -> int:
+    """Byte offset of (row, byte of K) in a tile of 128-byte rows under the
+    128-byte swizzle: the 16-byte chunk index is XORed with ``row % 8``."""
+    return row * 128 + ((((kbyte >> 4) ^ (row & 7)) << 4) | (kbyte & 15))
+
+
+def pack_b_resident_plain(b: torch.Tensor) -> torch.Tensor:
+    """The shared-memory image the resident kernel builds of ``b``:
+    ``[panels, padded_n * 128]`` bytes, panel p holding K bytes
+    ``[128 p, 128 p + 128)`` of every column as one swizzled row, zeros where
+    ``b`` ends."""
+    K, N = b.shape
+    panels = -(-K // 128)
+    padded_n = resident_b_bytes(N, K) // (panels * 128)
+    k = torch.arange(K)[:, None].expand(K, N)
+    n = torch.arange(N)[None, :].expand(K, N)
+    kb = k % 128
+    off = n * 128 + ((((kb >> 4) ^ (n & 7)) << 4) | (kb & 15))
+    img = torch.zeros((panels, padded_n * 128), dtype=b.dtype)
+    img[k // 128, off] = b.cpu()
+    return img
+
+
+def transpose_b_plain(b: torch.Tensor) -> torch.Tensor:
+    """What the tiled kernel's transposition pass writes: ``[N, K up to a
+    multiple of 16]``, zeros past K."""
+    K, N = b.shape
+    out = torch.zeros((N, -(-K // 16) * 16), dtype=b.dtype, device=b.device)
+    out[:, :K] = b.t()
+    return out
+
+
 # ------------------------------------------------------------------ checking
 
-def _check_pair(name: str, a: torch.Tensor, b: torch.Tensor, dtypes) -> None:
-    if a.dim() != 2 or b.dim() < 2:
-        raise ValueError(f"{name}: a must be [M, K] and b [.., K, N], got "
+def _check_pair(name: str, a: torch.Tensor, b: torch.Tensor, dtypes,
+                b_dims: int = 2) -> None:
+    """One test on the way every good call takes; what exactly is wrong is
+    worked out only when it fails."""
+    if (a.dim() == 2 and b.dim() == b_dims and b.shape[-2] == a.shape[1]
+            and a.dtype in dtypes and b.dtype == a.dtype
+            and a.device == b.device
+            and (a.device.type == "cpu" or (
+                a.is_cuda and a.device.index == torch.cuda.current_device()))):
+        return
+    if a.dim() != 2 or b.dim() != b_dims:
+        raise ValueError(f"{name}: a must be [M, K] and b "
+                         f"{'[K, N]' if b_dims == 2 else '[taps, K, N]'}, got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
     if b.shape[-2] != a.shape[1]:
         raise ValueError(f"{name}: a is {tuple(a.shape)} but b is "
@@ -92,9 +185,8 @@ def _check_pair(name: str, a: torch.Tensor, b: torch.Tensor, dtypes) -> None:
         raise ValueError(f"{name}: a and b must be on the same device")
     if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cpu or cuda, not {a.device}")
-    if a.device.type == "cuda" and a.get_device() != torch.cuda.current_device():
-        raise ValueError(f"{name}: a is on {a.device}, but the current CUDA "
-                         f"device is {torch.cuda.current_device()}")
+    raise ValueError(f"{name}: a is on {a.device}, but the current CUDA "
+                     f"device is {torch.cuda.current_device()}")
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -116,37 +208,119 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.int32 if dtype == torch.int8 else torch.float32
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("s8_mm")
-    if lib.az_s8_mm.argtypes is None:
+_fns = None  # the C entry points, bound at the first launch
+
+
+def _bind() -> SimpleNamespace:
+    """Build and load both sources and declare every entry point, once."""
+    global _fns
+    if _fns is None:
+        _build.build(["wgmma_mm", "s8_mm"])
+        wg, mma = _build.load("wgmma_mm"), _build.load("s8_mm")
         p, i = ctypes.c_void_p, ctypes.c_int
-        for fn, args in ((lib.az_s8_mm, [p, p, p, i, i, i, p]),
-                         (lib.az_s8_mm_multi, [p, p, p, i, i, i, i, p]),
-                         (lib.az_tiled_mm, [p, p, p, i, i, i, i, p]),
-                         (lib.az_chained_dot, [p, p, p, i, i, i, i, i, p])):
+        for fn, args in ((wg.az_s8_mm_resident, [p, p, p, i, i, i, i, p]),
+                         (wg.az_wgmma_tiled, [p, p, p, p, i, i, i, i, i, i, p]),
+                         (wg.az_resident_b_max, []), (wg.az_tiled_smem, []),
+                         (wg.az_resident_smem_fixed, []),
+                         (mma.az_s8_mm_multi, [p, p, p, i, i, i, i, p]),
+                         (mma.az_chained_dot, [p, p, p, i, i, i, i, i, p])):
             fn.restype = ctypes.c_int
             fn.argtypes = args
-    return lib
+        if wg.az_resident_b_max() != RESIDENT_B_MAX:
+            raise RuntimeError("RESIDENT_B_MAX differs between ops/s8_mm.py "
+                               "and csrc/wgmma_mm.cu")
+        _fns = SimpleNamespace(
+            wg=wg, mma=mma, resident=wg.az_s8_mm_resident,
+            tiled=wg.az_wgmma_tiled, multi=mma.az_s8_mm_multi,
+            chained=mma.az_chained_dot)
+    return _fns
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def dynamic_smem_bytes(route: str, N: int = 0, K: int = 0) -> int:
+    """Dynamic shared memory one block of the kernel behind ``route`` asks
+    for (the resident kernel's depends on ``b [K, N]``); builds the source."""
+    fns = _fns or _bind()
+    if route == "tiled":
+        return fns.wg.az_tiled_smem()
+    return fns.wg.az_resident_smem_fixed() + resident_b_bytes(N, K)
 
 
-def _launch_tiled(wrapper, entry: str, a: torch.Tensor, b: torch.Tensor,
-                  *extra: int) -> torch.Tensor:
-    """Pad, launch the row-tiled kernel behind C function ``entry`` for
-    ``wrapper`` and unpad.  ``b`` is [K, N] or [taps, K, N]."""
+def _rows16(x: torch.Tensor) -> torch.Tensor:
+    """``x [R, C]`` as the TMA unit can read it: unit column stride, base
+    and row pitch multiples of 16 bytes (the pitch is ``stride(0)``).  ``x``
+    itself where it qualifies, else one copy into rows of such a pitch.
+    What lies between a row's end and the next row is never read: the
+    tensor map ends at column C."""
+    es = x.element_size()
+    R, C = x.shape
+    if (x.stride(1) == 1 and x.stride(0) >= C
+            and x.stride(0) * es % 16 == 0 and x.data_ptr() % 16 == 0):
+        return x
+    buf = x.new_empty((R, C + -C % (16 // es)))[:, :C]
+    return buf.copy_(x)
+
+
+def _launch_resident(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``s8_mm`` through the kernel that keeps ``b`` in shared memory."""
+    M, K = a.shape
+    N = b.shape[1]
+    out = torch.empty((M, N), dtype=torch.int32, device=a.device)
+    if M == 0 or N == 0:
+        return out
+    fns = _fns or _bind()
+    a = _rows16(a)
+    if not b.is_contiguous():
+        b = b.contiguous()
+    code = fns.resident(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
+                        a.stride(0), _build.stream_of(a))
+    if code:
+        _build.check(fns.wg, code, "s8_mm")
+    s8_mm.launches += 1
+    return out
+
+
+def _launch_wgmma_tiled(wrapper, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``wrapper``'s product through the tiled wgmma kernel; for s8 the same
+    call first transposes ``b`` into scratch allocated here."""
+    M, K = a.shape
+    N = b.shape[1]
+    es = a.element_size()
+    out = torch.empty((M, N), dtype=_acc_dtype(a.dtype), device=a.device)
+    if M == 0 or N == 0:
+        return out
+    fns = _fns or _bind()
+    a = _rows16(a)
+    if es == 1:
+        if not b.is_contiguous():
+            b = b.contiguous()
+        scratch = torch.empty((N, -(-K // 16) * 16), dtype=torch.int8,
+                              device=a.device)
+        bt, ldb = scratch.data_ptr(), N
+    else:
+        b = _rows16(b)
+        bt, ldb = None, b.stride(0)
+    code = fns.tiled(a.data_ptr(), b.data_ptr(), bt, out.data_ptr(), M, N, K,
+                     a.stride(0), ldb, es, _build.stream_of(a))
+    if code:
+        _build.check(fns.wg, code, wrapper.__name__)
+    wrapper.launches += 1
+    return out
+
+
+def _launch_multi(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``s8_mm_multi`` through the row-tiled ``mma.sync`` kernel: pad K and N
+    to multiples of 16, launch, unpad.  ``b`` is [taps, K, N]."""
     M, N = a.shape[0], b.shape[-1]
     a_p = _pad_to(a, -1, _ALIGN)
     b_p = _pad_to(_pad_to(b, -2, _ALIGN), -1, _ALIGN)
     Kp, Np = a_p.shape[1], b_p.shape[-1]
-    out = torch.empty((M, Np), dtype=_acc_dtype(a.dtype), device=a.device)
-    lib = _lib()
-    code = getattr(lib, entry)(a_p.data_ptr(), b_p.data_ptr(), out.data_ptr(),
-                               M, Np, Kp, *extra, _stream())
-    _build.check(lib, code, wrapper.__name__)
-    wrapper.launches += 1
+    out = torch.empty((M, Np), dtype=torch.int32, device=a.device)
+    fns = _fns or _bind()
+    code = fns.multi(a_p.data_ptr(), b_p.data_ptr(), out.data_ptr(), M, Np, Kp,
+                     b.shape[0], _build.stream_of(a))
+    if code:
+        _build.check(fns.mma, code, "s8_mm_multi")
+    s8_mm_multi.launches += 1
     return out if Np == N else out[:, :N].contiguous()
 
 
@@ -155,33 +329,31 @@ def _launch_tiled(wrapper, entry: str, a: torch.Tensor, b: torch.Tensor,
 def s8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a [M, K] @ b [K, N]``, s8 x s8 -> s32, exact."""
     _check_pair("s8_mm", a, b, (torch.int8,))
-    if b.dim() != 2:
-        raise ValueError(f"s8_mm: b must be [K, N], got {tuple(b.shape)}")
     if a.device.type == "cpu":
         return s8_mm_plain(a, b)
-    return _launch_tiled(s8_mm, "az_s8_mm", a, b)
+    if s8_mm_route(b.shape[1], a.shape[1]) == "resident":
+        return _launch_resident(a, b)
+    return _launch_wgmma_tiled(s8_mm, a, b)
 
 
 def s8_mm_multi(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``sum_t a [M, K] @ b[t] [K, N]`` for ``b [taps, K, N]``, s8 -> s32:
     the same rows of ``a`` against several weight matrices, accumulated."""
-    _check_pair("s8_mm_multi", a, b, (torch.int8,))
-    if b.dim() != 3 or b.shape[0] < 1:
+    _check_pair("s8_mm_multi", a, b, (torch.int8,), b_dims=3)
+    if b.shape[0] < 1:
         raise ValueError(f"s8_mm_multi: b must be [taps, K, N], got "
                          f"{tuple(b.shape)}")
     if a.device.type == "cpu":
         return s8_mm_multi_plain(a, b)
-    return _launch_tiled(s8_mm_multi, "az_s8_mm_multi", a, b, b.shape[0])
+    return _launch_multi(a, b)
 
 
 def tiled_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a [M, K] @ b [K, N]``: s8 -> s32 (exact) or bf16 -> f32 (f32 sums)."""
     _check_pair("tiled_mm", a, b, (torch.int8, torch.bfloat16))
-    if b.dim() != 2:
-        raise ValueError(f"tiled_mm: b must be [K, N], got {tuple(b.shape)}")
     if a.device.type == "cpu":
         return tiled_mm_plain(a, b)
-    return _launch_tiled(tiled_mm, "az_tiled_mm", a, b, a.element_size())
+    return _launch_wgmma_tiled(tiled_mm, a, b)
 
 
 def chained_dot(a: torch.Tensor, b: torch.Tensor, R: int) -> torch.Tensor:
@@ -195,8 +367,6 @@ def chained_dot(a: torch.Tensor, b: torch.Tensor, R: int) -> torch.Tensor:
     a multiple of 32 and K a multiple of N; ``b`` and a 64-row band of ``a``
     (twice) must fit one block's shared memory."""
     _check_pair("chained_dot", a, b, (torch.int8, torch.bfloat16))
-    if b.dim() != 2:
-        raise ValueError(f"chained_dot: b must be [K, N], got {tuple(b.shape)}")
     M, K = a.shape
     N = b.shape[1]
     if R < 0 or N % 32 or K % N:
@@ -211,10 +381,11 @@ def chained_dot(a: torch.Tensor, b: torch.Tensor, R: int) -> torch.Tensor:
                          f"shared memory, more than {_SMEM_MAX}")
     a_p, b_p = _aligned(a), _aligned(b)
     out = torch.empty((M, N), dtype=_acc_dtype(a.dtype), device=a.device)
-    lib = _lib()
-    code = lib.az_chained_dot(a_p.data_ptr(), b_p.data_ptr(), out.data_ptr(),
-                              M, N, K, R, es, _stream())
-    _build.check(lib, code, "chained_dot")
+    fns = _fns or _bind()
+    code = fns.chained(a_p.data_ptr(), b_p.data_ptr(), out.data_ptr(), M, N, K,
+                       R, es, _build.stream_of(a))
+    if code:
+        _build.check(fns.mma, code, "chained_dot")
     chained_dot.launches += 1
     return out
 

@@ -6,9 +6,14 @@ One counterpart of the JAX package's three probe tools
 ``ops/s8_mm.py`` on the card, holds the result against the plain PyTorch
 version (s8: bit for bit; bf16: within ``BF16_TOL`` of the largest
 reference value; a chained dot at no more than ``CHECK_CHAIN`` steps) and
-prints one JSON line with the time by CUDA events, the achieved TOP/s, the
-plain version's time and the roofline bound (operations at the tensor
-cores' peak against bytes at the memory's rate).
+prints one JSON line with the time by CUDA events (``ms``: eager calls, the
+wrapper's host cost included; ``graph_ms``: the same calls replayed from a
+CUDA graph, device time alone), the achieved TOP/s, the plain version's time
+and the roofline bound (operations at the tensor cores' peak against bytes
+at the memory's rate).  Before the timed cases, ``edge_cases()`` are checked
+without timing: ragged M, N and K on each side of every tile edge, several
+rounds of the persistent grid, both routes of ``s8_mm``, -128 among the
+values, inputs that are strided, misaligned or pitched.
 
     python -m alphazero_tpu_torch.scripts.profile_s8_dots [--reps 20] [--chain 64]
 
@@ -44,6 +49,13 @@ class Case(NamedTuple):
     a_shape: Tuple[int, int]
     b_shape: Tuple[int, ...]
     R: int = 0  # chained_dot only
+    # How the inputs lie in memory: "dense"; "strided" (every other column
+    # of a wider `a`, `b` a transposed view: both must be copied);
+    # "misaligned" (bases one element past a 16-byte boundary); "pitched"
+    # (`a` the first K columns of a wider matrix whose pitch is a multiple
+    # of 16 bytes, other data behind them: read in place).
+    layout: str = "dense"
+    lowest: int = -127  # smallest s8 value drawn; -128 is forced in if asked
 
 
 def probe_cases(chain: int):
@@ -66,11 +78,51 @@ def probe_cases(chain: int):
 
 def trunk_cases(boards: int = 512, cells: int = 225):
     """``s8_mm`` at the int8 trunk's shapes for one chunk of ``boards``
-    15x15 positions: the 3x3 conv in im2col form, the stem and a 1x1 head."""
+    15x15 positions: the 3x3 conv in im2col form, the stem (densely packed,
+    which ``s8_mm`` must copy to a 16-byte pitch, and as the executor's
+    im2col hands it over, with a 112-byte pitch) and a 1x1 head."""
     M = boards * cells
     return [Case("s8_mm", "conv3x3_64", torch.int8, (M, 576), (576, 64)),
             Case("s8_mm", "stem_11", torch.int8, (M, 99), (99, 64)),
+            Case("s8_mm", "stem_11_pitched", torch.int8, (M, 99), (99, 64),
+                 layout="pitched"),
             Case("s8_mm", "head_1x1", torch.int8, (M, 64), (64, 32))]
+
+
+def edge_cases():
+    """Shapes and layouts on each side of every edge of the two wgmma
+    kernels (row tiles of 128, column tiles of 32 / 64 / 128 / 256, K steps
+    of 32 and 128 bytes, the resident limit of ``s8_mm``), checked only."""
+    s8, bf = torch.int8, torch.bfloat16
+    ragged = [(1, 1, 1), (37, 99, 21), (130, 577, 65), (129, 64, 513),
+              (300, 200, 8), (257, 130, 256), (64, 256, 128)]
+    cases = []
+    for M, K, N in ragged:
+        cases.append(Case("s8_mm", f"edge_{M}x{K}x{N}", s8, (M, K), (K, N)))
+        cases.append(Case("tiled_mm", f"edge_s8_{M}x{K}x{N}", s8, (M, K), (K, N)))
+        cases.append(Case("tiled_mm", f"edge_bf16_{M}x{K}x{N}", bf, (M, K), (K, N)))
+    rounds = 132 * 128 * 2 + 77  # over two rounds of 132 blocks, ragged tail
+    cases += [
+        Case("s8_mm", "edge_rounds", s8, (rounds, 576), (576, 64)),
+        Case("s8_mm", "edge_resident_max", s8, (300, 768), (768, 128)),
+        Case("s8_mm", "edge_resident_over", s8, (300, 769), (769, 128)),
+        Case("s8_mm", "edge_n32_k3072", s8, (300, 3072), (3072, 32)),
+        Case("tiled_mm", "edge_s8_tiles", s8, (513, 1024), (1024, 520)),
+        Case("tiled_mm", "edge_bf16_tiles", bf, (513, 1024), (1024, 520)),
+    ]
+    for kernel in ("s8_mm", "tiled_mm"):
+        cases += [
+            Case(kernel, "edge_minus128", s8, (1000, 576), (576, 64), lowest=-128),
+            Case(kernel, "edge_strided", s8, (500, 576), (576, 64), layout="strided"),
+            Case(kernel, "edge_misaligned", s8, (500, 99), (99, 64), layout="misaligned"),
+            Case(kernel, "edge_pitched", s8, (5000, 99), (99, 64), layout="pitched"),
+        ]
+    cases += [
+        Case("tiled_mm", "edge_bf16_strided", bf, (500, 576), (576, 64), layout="strided"),
+        Case("tiled_mm", "edge_bf16_misaligned", bf, (500, 99), (99, 64), layout="misaligned"),
+        Case("tiled_mm", "edge_bf16_pitched", bf, (500, 100), (100, 64), layout="pitched"),
+    ]
+    return cases
 
 
 def cuda_ms(fn: Callable[[], object], reps: int) -> float:
@@ -87,15 +139,44 @@ def cuda_ms(fn: Callable[[], object], reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn: Callable[[], object], reps: int) -> float:
+    """Device milliseconds per call: ``reps`` calls captured in one CUDA
+    graph and replayed, so the host's launch cost is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, reps=5) / reps
+
+
 def make_inputs(case: Case, gen: torch.Generator):
     def rand(shape):
         if case.dtype == torch.int8:
-            return torch.randint(-127, 128, shape, generator=gen, device="cuda",
-                                 dtype=torch.int8)
+            x = torch.randint(case.lowest, 128, shape, generator=gen,
+                              device="cuda", dtype=torch.int8)
+            if case.lowest == -128:
+                x.view(-1)[::7] = -128
+            return x
         x = torch.randn(shape, generator=gen, device="cuda")
         scale = 0.02 if case.kernel == "tiled_mm" else 1.0
         return (x * scale).to(torch.bfloat16)
 
+    (M, K), (_, N) = case.a_shape, case.b_shape[-2:]
+    per16 = 16 // (1 if case.dtype == torch.int8 else 2)  # elements in 16 bytes
+    if case.layout == "strided":
+        return rand((M, 2 * K))[:, ::2], rand((N, K)).t()
+    if case.layout == "misaligned":
+        return (rand((M * K + 1,))[1:].view(M, K),
+                rand((K * N + 1,))[1:].view(K, N))
+    if case.layout == "pitched":
+        pitch = -(-K // per16) * per16 + per16
+        return rand((M, pitch))[:, :K], rand(case.b_shape)
     return rand(case.a_shape), rand(case.b_shape)
 
 
@@ -113,8 +194,9 @@ def work(case: Case) -> Tuple[int, int]:
 
 def run_case(case: Case, gen: torch.Generator, reps: int,
              library: Optional[Callable] = None) -> dict:
-    """Check one case against its plain version and time it.  ``library``,
-    if given, is called as ``library(a, b)`` and timed as the yardstick."""
+    """Check one case against its plain version and, unless ``reps`` is 0,
+    time it.  ``library``, if given, is called as ``library(a, b)`` and
+    timed as the yardstick."""
     a, b = make_inputs(case, gen)
     fn = getattr(ops, case.kernel)
     plain = getattr(ops, case.kernel + "_plain")
@@ -129,16 +211,24 @@ def run_case(case: Case, gen: torch.Generator, reps: int,
         ok = torch.equal(out, ref)
     else:
         ok = err <= BF16_TOL[case.kernel] * float(ref.abs().max())
-    n_ops, n_bytes = work(case)
-    t_ops, t_bytes = n_ops / PEAK_OPS[case.dtype], n_bytes / HBM_BYTES_PER_S
-    ms = cuda_ms(lambda: fn(*args), reps)
-    return {
+    row = {
         "kernel": case.kernel, "case": case.name,
         "dtype": str(case.dtype).replace("torch.", ""),
         "a": list(case.a_shape), "b": list(case.b_shape), "R": case.R,
         "agrees": bool(ok), "max_abs_err": err,
         "ref_max": float(ref.abs().max()),
-        "ms": ms, "tops": n_ops / (ms * 1e-3) / 1e12,
+    }
+    if case.kernel == "s8_mm":
+        row["route"] = ops.s8_mm_route(case.b_shape[1], case.a_shape[1])
+    if reps == 0:
+        return row
+    n_ops, n_bytes = work(case)
+    t_ops, t_bytes = n_ops / PEAK_OPS[case.dtype], n_bytes / HBM_BYTES_PER_S
+    ms = cuda_ms(lambda: fn(*args), reps)
+    return {
+        **row,
+        "ms": ms, "graph_ms": graph_ms(lambda: fn(*args), reps),
+        "tops": n_ops / (ms * 1e-3) / 1e12,
         "plain_ms": cuda_ms(lambda: plain(*args), max(2, reps // 4)),
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -159,10 +249,12 @@ def main(argv=None) -> list:
     print(json.dumps({"card": torch.cuda.get_device_name(0)}), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = []
+    for case in edge_cases():
+        rows.append(run_case(case, gen, reps=0))
+        print(json.dumps(rows[-1]), flush=True)
     for case in trunk_cases() + probe_cases(args.chain):
-        row = run_case(case, gen, args.reps)
-        print(json.dumps(row), flush=True)
-        rows.append(row)
+        rows.append(run_case(case, gen, args.reps))
+        print(json.dumps(rows[-1]), flush=True)
     bad = [f"{r['kernel']}:{r['case']}" for r in rows if not r["agrees"]]
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions: {bad}")

@@ -5,15 +5,22 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build: every CUDA source (gather_rows, s8_mm), one nvcc each, started
-     together (sm_90a);
+  2. build: every CUDA source (gather_rows, s8_mm, wgmma_mm), one nvcc
+     each, started together (sm_90a); prints each kernel's registers and
+     shared memory, and counts the wgmma and TMA instructions in
+     wgmma_mm's machine code (none would fail the run; skipped where the
+     toolkit has no cuobjdump);
   3. kernels: each kernel against its plain PyTorch version on the card:
-     gather_rows at the search's shapes (bit for bit); s8_mm at the int8
-     trunk's shapes and the probes' shapes, s8_mm_multi, chained_dot (R=8)
-     and tiled_mm at the probes' shapes through
-     scripts/profile_s8_dots.run_case (s8 bit for bit, bf16 within its
-     stated tolerance); with CUDA-event times of the kernel, the plain
-     version and one PyTorch library call, and the roofline bound;
+     gather_rows at the search's shapes (bit for bit); the two wgmma
+     kernels (s8_mm, tiled_mm) at scripts/profile_s8_dots.edge_cases():
+     ragged M, N, K around every tile edge, several rounds of the
+     persistent grid, both routes of s8_mm, -128 among the values, strided,
+     misaligned and pitched inputs; then s8_mm at the int8 trunk's shapes
+     and the probes' shapes, s8_mm_multi, chained_dot (R=8) and tiled_mm at
+     the probes' shapes through scripts/profile_s8_dots.run_case (s8 bit
+     for bit, bf16 within its stated tolerance); with CUDA-event times of
+     the kernel (eager, and replayed from a CUDA graph), the plain version
+     and one PyTorch library call, and the roofline bound;
   4. nets on the card against the port's CPU forwards on 64 mid-game
      positions: bf16/f32 folded net, and the int8 executor on the same qp;
   5. main path at full width with the production executor: the flagship
@@ -73,22 +80,6 @@ def cuda_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, reps: int = 50) -> float:
-    """Device milliseconds per call: ``reps`` calls captured in one CUDA
-    graph and replayed, so the host's launch cost is left out."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    return cuda_ms(graph.replay, reps=5) / reps
-
-
 def phase_device() -> tuple:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -104,19 +95,39 @@ def phase_device() -> tuple:
 def phase_build() -> None:
     from alphazero_tpu_torch.ops import _build
 
-    names = ["gather_rows", "s8_mm"]
+    names = ["gather_rows", "s8_mm", "wgmma_mm"]
     t0 = time.perf_counter()
     _build.build(names)
     secs = time.perf_counter() - t0
     for n in names:
-        regs = [ln.strip() for ln in _build.ptxas_log.get(n, "").splitlines()
-                if "registers" in ln]
-        log(f"[build] {n}: ptxas {regs}")
+        kernel = "?"
+        for ln in _build.ptxas_log.get(n, "").splitlines():
+            if "Compiling entry function" in ln:
+                kernel = _build.demangle(ln.split("'")[1])[:100]
+            elif ": Used" in ln or ("spill" in ln and "0 bytes spill" not in ln):
+                log(f"[build] {n}: {kernel}: {ln.split(':', 1)[1].strip()}")
     log(f"[build] {names} built in {secs:.2f} s")
+    from alphazero_tpu_torch.ops import s8_mm as ops
+
+    log("[build] wgmma_mm dynamic shared memory a block: " + json.dumps({
+        "tiled": ops.dynamic_smem_bytes("tiled"),
+        "resident_576x64": ops.dynamic_smem_bytes("resident", 64, 576),
+        "resident_99x64": ops.dynamic_smem_bytes("resident", 64, 99)}))
+    # The product kernels must really be wgmma fed by TMA: count both in the
+    # machine code of the library just built.
+    sass = _build.machine_code("wgmma_mm")
+    if sass is None:
+        log("[build] no cuobjdump beside nvcc: machine code not inspected")
+        return
+    counts = {op: sass.count(op) for op in ("HGMMA", "IGMMA", "UTMALDG")}
+    log(f"[build] wgmma_mm machine code: {json.dumps(counts)}")
+    if not all(counts.values()):
+        raise AssertionError(f"wgmma_mm was built without wgmma or TMA: {counts}")
 
 
 def _gather_case(name, B, N, K, M, dtype, lo, hi, gen):
     from alphazero_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
+    from alphazero_tpu_torch.scripts.profile_s8_dots import graph_ms
 
     if dtype.is_floating_point:
         arr = torch.randn((B, N, K), generator=gen, device="cuda").to(dtype)
@@ -142,16 +153,16 @@ def _gather_case(name, B, N, K, M, dtype, lo, hi, gen):
     if lo >= 0 and hi <= N:  # torch.gather computes the same function here
         full_idx = idx.long()[:, :, None].expand(B, M, K)
         row["library_ms"] = cuda_ms(lambda: torch.gather(arr, 1, full_idx))
-        row["library_graph_ms"] = graph_ms(lambda: torch.gather(arr, 1, full_idx))
+        row["library_graph_ms"] = graph_ms(lambda: torch.gather(arr, 1, full_idx), 50)
     else:
         row["library_ms"] = row["library_graph_ms"] = None
     # *_ms: eager calls back to back (what a call costs the search, host
     # launch included); *_graph_ms: the same calls replayed from a CUDA
     # graph (device time alone).
     row["ms"] = cuda_ms(lambda: gather_rows(arr, idx))
-    row["graph_ms"] = graph_ms(lambda: gather_rows(arr, idx))
+    row["graph_ms"] = graph_ms(lambda: gather_rows(arr, idx), 50)
     row["plain_ms"] = cuda_ms(lambda: gather_rows_plain(arr, idx))
-    row["plain_graph_ms"] = graph_ms(lambda: gather_rows_plain(arr, idx))
+    row["plain_graph_ms"] = graph_ms(lambda: gather_rows_plain(arr, idx), 50)
     return row
 
 
@@ -192,20 +203,28 @@ def _library_for(case):
 
 
 def phase_products() -> list:
-    """Every s8 / bf16 product kernel against its plain version, at the
-    int8 trunk's shapes and the probes' shapes."""
+    """Every s8 / bf16 product kernel against its plain version: the two
+    wgmma kernels at their edge cases (checked only), then all at the int8
+    trunk's shapes and the probes' shapes (checked and timed)."""
     from alphazero_tpu_torch.scripts import profile_s8_dots as probe
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    edges = [probe.run_case(case, gen, reps=0) for case in probe.edge_cases()]
+    log("[kernel] edge cases: " + json.dumps(
+        [[r["kernel"], r["case"], r.get("route", "tiled"), r["agrees"],
+          r["max_abs_err"]] for r in edges]))
+    routes = {r["route"] for r in edges if "route" in r}
+    if routes != {"resident", "tiled"}:
+        raise AssertionError(f"the edge cases took only the routes {routes}")
     rows = []
     for case in probe.trunk_cases() + probe.probe_cases(chain=8):
         row = probe.run_case(case, gen, reps=20, library=_library_for(case))
         log("[kernel] " + json.dumps(row))
         rows.append(row)
-    bad = [f"{r['kernel']}:{r['case']}" for r in rows if not r["agrees"]]
+    bad = [f"{r['kernel']}:{r['case']}" for r in edges + rows if not r["agrees"]]
     if bad:
         raise AssertionError(f"kernels differ from their plain versions: {bad}")
-    return rows
+    return edges + rows
 
 
 def _random_states(env, B, plies, seed, device):
@@ -496,6 +515,7 @@ def main() -> int:
         "launches": main_res["launches"]["gather_rows"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": head["ms"],
+        "graph_ms": head["graph_ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": "bytes",
@@ -503,25 +523,26 @@ def main() -> int:
     }]
     # One line per product kernel: the case named here gives the times (the
     # main path's conv shape for s8_mm), all its cases the largest error.
-    for kname, case, replaces, launches in (
-            ("s8_mm", "conv3x3_64", "tools/profile_fused_shapes.py:46",
-             main_res["launches"]["s8_mm"]),
-            ("s8_mm_multi", "probe_5x128x64", "tools/profile_fused_shapes.py:68",
-             probe_launches["s8_mm_multi"]),
-            ("chained_dot", "s8_3600x576x64", "tools/profile_inkernel_dot.py:23",
-             probe_launches["chained_dot"]),
-            ("tiled_mm", "s8_8192x2048x2048", "tools/profile_pallas_mm.py:30",
-             probe_launches["tiled_mm"])):
+    for kname, source, case, replaces, launches in (
+            ("s8_mm", "wgmma_mm", "conv3x3_64",
+             "tools/profile_fused_shapes.py:46", main_res["launches"]["s8_mm"]),
+            ("s8_mm_multi", "s8_mm", "probe_5x128x64",
+             "tools/profile_fused_shapes.py:68", probe_launches["s8_mm_multi"]),
+            ("chained_dot", "s8_mm", "s8_3600x576x64",
+             "tools/profile_inkernel_dot.py:23", probe_launches["chained_dot"]),
+            ("tiled_mm", "wgmma_mm", "s8_8192x2048x2048",
+             "tools/profile_pallas_mm.py:30", probe_launches["tiled_mm"])):
         mine = [r for r in prod_rows if r["kernel"] == kname]
         row = next(r for r in mine if r["case"] == case)
         kernels.append({
             "name": kname,
             "route": "cuda",
-            "source": "alphazero_tpu_torch/csrc/s8_mm.cu",
+            "source": f"alphazero_tpu_torch/csrc/{source}.cu",
             "replaces": replaces,
             "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": row["ms"],
+            "graph_ms": row["graph_ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],

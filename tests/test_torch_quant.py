@@ -153,6 +153,22 @@ def test_calibrate_matches_jax(nets, pct):
     assert zeros[0] == np.float32(1e-6)  # floor
 
 
+
+@pytest.mark.parametrize("C,k", [(11, 3), (4, 3), (64, 3), (6, 1)])
+def test_im2col_rows_lie_16_bytes_apart(C, k):
+    """The patch matrix equals the unfolded input, and its row pitch is a
+    multiple of 16 bytes whatever ``k*k*C`` is (the stem's 99 included), so
+    that the product kernel reads it in place."""
+    rng = np.random.default_rng(C)
+    x = rng.integers(-127, 128, (3, 7, 7, C)).astype(np.int8)
+    got = tq._im2col(torch.from_numpy(x), k, k)
+    assert got.shape == (3 * 7 * 7, k * k * C) and got.dtype == torch.int8
+    assert got.stride(1) == 1 and got.stride(0) % 16 == 0
+    xp = np.pad(x, ((0, 0), (k // 2, k // 2), (k // 2, k // 2), (0, 0)))
+    want = np.stack([xp[:, ky:ky + 7, kx:kx + 7] for ky in range(k)
+                     for kx in range(k)], axis=3).reshape(3 * 7 * 7, -1)
+    np.testing.assert_array_equal(got.numpy(), want)
+
 @pytest.mark.parametrize("cin,cout,k", [(16, 16, 3), (11, 16, 3), (16, 8, 1)])
 def test_conv_i8_exact(cin, cout, k):
     rng = np.random.default_rng(cin + k)

@@ -18,10 +18,12 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from alphazero_tpu_torch.ops import s8_mm as ops
 from alphazero_tpu_torch.ops.s8_mm import (
     chained_dot, chained_dot_plain, s8_mm, s8_mm_multi, s8_mm_multi_plain,
     s8_mm_plain, tiled_mm, tiled_mm_plain,
 )
+from alphazero_tpu_torch.scripts import profile_s8_dots as probe
 
 TOOLS = pathlib.Path(__file__).resolve().parents[1] / "tools"
 
@@ -188,11 +190,190 @@ def test_launch_counters_count_only_kernel_launches():
                       chained_dot.launches)
 
 
+# ----------------------------------------------- routing between the kernels
+
+@pytest.mark.parametrize("N,K,route", [
+    (64, 576, "resident"), (64, 99, "resident"), (32, 64, "resident"),
+    (64, 128, "resident"), (128, 640, "resident"), (1, 1, "resident"),
+    (8, 64, "resident"), (128, 768, "resident"),   # 6 panels x 16 KB: the limit
+    (128, 769, "tiled"),                           # one panel more
+    (64, 1536, "resident"), (64, 1537, "tiled"),
+    (32, 3072, "resident"), (32, 3073, "tiled"),
+    (129, 64, "tiled"), (256, 64, "tiled"), (2048, 2048, "tiled"),
+])
+def test_s8_mm_route(N, K, route):
+    assert ops.s8_mm_route(N, K) == route
+    assert (route == "resident") == (
+        N <= 128 and ops.resident_b_bytes(N, K) <= ops.RESIDENT_B_MAX)
+
+
+_PRODUCT_CASES = [c for c in probe.trunk_cases() + probe.probe_cases(8)
+                  + probe.edge_cases() if c.kernel in ("s8_mm", "tiled_mm")]
+
+
+@pytest.mark.parametrize("case", _PRODUCT_CASES,
+                         ids=[f"{c.kernel}-{c.name}" for c in _PRODUCT_CASES])
+def test_every_card_case_lands_on_a_kernel_that_takes_it(case):
+    (M, K), N = case.a_shape, case.b_shape[1]
+    route = ops.s8_mm_route(N, K) if case.kernel == "s8_mm" else "tiled"
+    assert ops.kernel_accepts(route, M, N, K, case.dtype)
+    if route == "tiled" and case.kernel == "s8_mm":
+        assert not ops.kernel_accepts("resident", M, N, K, case.dtype)
+
+
+def test_edge_cases_take_both_routes_and_every_layout():
+    s8 = [c for c in probe.edge_cases() if c.kernel == "s8_mm"]
+    assert {ops.s8_mm_route(c.b_shape[1], c.a_shape[1]) for c in s8} == {
+        "resident", "tiled"}
+    assert {c.layout for c in s8} == {"dense", "strided", "misaligned", "pitched"}
+    assert any(c.lowest == -128 for c in s8)
+    assert any(c.a_shape[0] > 2 * 132 * 128 for c in s8)  # over two rounds
+
+
+@pytest.mark.parametrize("wrapper,dtype,N,K,want", [
+    ("s8_mm", torch.int8, 64, 576, "resident"),
+    ("s8_mm", torch.int8, 2048, 2048, "tiled"),
+    ("tiled_mm", torch.int8, 64, 576, "tiled"),
+    ("tiled_mm", torch.bfloat16, 64, 576, "tiled"),
+])
+def test_off_the_cpu_no_wrapper_takes_a_plain_version(monkeypatch, wrapper,
+                                                      dtype, N, K, want):
+    """A tensor that is not on the CPU goes to a kernel launch, by the route
+    its shape names, and never to ``*_plain``."""
+    taken = []
+    monkeypatch.setattr(ops, "_check_pair", lambda *args, **kw: None)
+    monkeypatch.setattr(ops, "_launch_resident",
+                        lambda a, b: taken.append("resident"))
+    monkeypatch.setattr(ops, "_launch_wgmma_tiled",
+                        lambda w, a, b: taken.append("tiled"))
+
+    def refuse(*args):
+        raise AssertionError("a plain version was called")
+
+    for name in ("s8_mm_plain", "tiled_mm_plain", "_int_matmul"):
+        monkeypatch.setattr(ops, name, refuse)
+    a = torch.empty((300, K), dtype=dtype, device="meta")
+    b = torch.empty((K, N), dtype=dtype, device="meta")
+    getattr(ops, wrapper)(a, b)
+    assert taken == [want]
+
+
+def test_kernel_accepts_mirrors_the_entry_points():
+    s8, bf = torch.int8, torch.bfloat16
+    assert ops.kernel_accepts("resident", 0, 64, 576, s8)   # nothing to do
+    assert not ops.kernel_accepts("resident", 10, 64, 0, s8)
+    assert not ops.kernel_accepts("resident", 10, 129, 64, s8)
+    assert not ops.kernel_accepts("resident", 10, 64, 576, bf)
+    assert not ops.kernel_accepts("resident", 10, 128, 769, s8)
+    assert ops.kernel_accepts("tiled", 10, 129, 64, s8)
+    assert ops.kernel_accepts("tiled", 1, 1, 1, bf)
+    assert not ops.kernel_accepts("tiled", 10, 64 * 65535 + 1, 16, s8)
+    with pytest.raises(ValueError):
+        ops.kernel_accepts("plain", 1, 1, 1, s8)
+
+
+# ------------------------------------- plain twins of what the kernels build
+
+def _unswizzle(img, padded_n):
+    """[panels, padded_n * 128] swizzled bytes -> [padded_n, panels * 128]."""
+    panels = img.shape[0]
+    out = np.zeros((padded_n, panels * 128), np.int8)
+    for p in range(panels):
+        for n in range(padded_n):
+            for chunk in range(8):
+                src = n * 128 + ((chunk ^ (n & 7)) << 4)
+                out[n, p * 128 + 16 * chunk:p * 128 + 16 * chunk + 16] = \
+                    img[p, src:src + 16]
+    return out
+
+
+@pytest.mark.parametrize("K,N,padded_n", [(1, 1, 32), (99, 21, 32), (99, 64, 64),
+                                          (576, 64, 64), (200, 65, 128),
+                                          (640, 128, 128)])
+def test_pack_b_resident_plain_is_the_swizzled_transpose(K, N, padded_n):
+    rng = np.random.default_rng(6)
+    b = rng.integers(-128, 128, (K, N)).astype(np.int8)
+    img = ops.pack_b_resident_plain(torch.from_numpy(b)).numpy()
+    panels = -(-K // 128)
+    assert img.shape == (panels, padded_n * 128)
+    want = np.zeros((padded_n, panels * 128), np.int8)
+    want[:N, :K] = b.T
+    np.testing.assert_array_equal(_unswizzle(img, padded_n), want)
+    # every byte sits where swizzled_offset says
+    for k, n in ((0, 0), (K - 1, N - 1), (K // 2, N // 2)):
+        assert img[k // 128, ops.swizzled_offset(n, k % 128)] == b[k, n]
+
+
+def test_swizzled_offset_permutes_each_group_of_eight_rows():
+    offs = {ops.swizzled_offset(r, k) for r in range(8) for k in range(128)}
+    assert offs == set(range(1024))
+    assert ops.swizzled_offset(0, 37) == 37            # row 0 is not permuted
+    assert ops.swizzled_offset(1, 0) == 128 + 16       # chunk 0 ^ 1
+    assert ops.swizzled_offset(9, 5) == 9 * 128 + 16 + 5
+
+
+@pytest.mark.parametrize("K,N", [(1, 1), (99, 21), (577, 65), (2048, 64)])
+def test_transpose_b_plain_matches_numpy(K, N):
+    rng = np.random.default_rng(7)
+    b = rng.integers(-128, 128, (K, N)).astype(np.int8)
+    got = ops.transpose_b_plain(torch.from_numpy(b)).numpy()
+    assert got.shape == (N, -(-K // 16) * 16)
+    np.testing.assert_array_equal(got[:, :K], b.T)
+    assert not got[:, K:].any()
+
+
+@pytest.mark.parametrize("K", [64, 1024, 1025, 2048])
+def test_minus_128_is_exact_in_the_plain_versions(K):
+    """The kernels' contract is s8, not the executor's [-127, 127]: the worst
+    case, every product 128 * 128, against numpy in int64."""
+    rng = np.random.default_rng(8)
+    a = rng.integers(-128, 128, (9, K)).astype(np.int8)
+    b = rng.integers(-128, 128, (K, 7)).astype(np.int8)
+    a[0], b[:, 0] = -128, -128
+    a[1, ::3] = -128
+    want = a.astype(np.int64) @ b.astype(np.int64)
+    assert want[0, 0] == K * 128 * 128
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    for fn in (s8_mm_plain, tiled_mm_plain, s8_mm, tiled_mm):
+        got = fn(ta, tb)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy().astype(np.int64), want)
+    np.testing.assert_array_equal(
+        s8_mm_multi_plain(ta, tb[None].repeat(2, 1, 1)).numpy().astype(np.int64),
+        2 * want)
+
+
+# ------------------------------------------------ what the wrapper hands over
+
+def test_rows16_passes_what_tma_can_read_and_copies_the_rest():
+    dense = torch.arange(40 * 64, dtype=torch.int32).to(torch.int8).reshape(40, 64)
+    assert ops._rows16(dense) is dense                       # 64-byte rows
+    wide = torch.arange(40 * 112, dtype=torch.int32).to(torch.int8).reshape(40, 112)
+    pitched = wide[:, :99]
+    assert ops._rows16(pitched) is pitched                   # pitch 112, in place
+    packed = pitched.contiguous()                            # pitch 99: copied
+    got = ops._rows16(packed)
+    assert got.shape == (40, 99) and got.stride() == (112, 1)
+    assert torch.equal(got, packed) and got.data_ptr() % 16 == 0
+    strided = wide[:, ::2]                                   # column stride 2
+    got = ops._rows16(strided)
+    assert got.stride() == (64, 1) and torch.equal(got, strided)
+    off = torch.zeros(40 * 64 + 16, dtype=torch.int8)[1:1 + 40 * 64].view(40, 64)
+    if off.data_ptr() % 16:                                  # misaligned base
+        got = ops._rows16(off)
+        assert got is not off and got.data_ptr() % 16 == 0
+    bf = torch.zeros((12, 20), dtype=torch.bfloat16)         # 40-byte rows
+    assert ops._rows16(bf).stride() == (24, 1)
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     g = torch.Generator(device="cuda").manual_seed(0)
+    bad = [c.name for c in probe.edge_cases()
+           if not probe.run_case(c, g, reps=0)["agrees"]]
+    assert not bad
 
     def s8(*shape):
         return torch.randint(-127, 128, shape, device="cuda", generator=g,
