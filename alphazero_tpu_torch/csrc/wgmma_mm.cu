@@ -1,8 +1,8 @@
-// wgmma_mm: the two matrix products that carry the most work, rebuilt around
-// Hopper's own machinery (sm_90a): wgmma from swizzled shared memory, TMA
-// loads that complete on mbarriers, a ring of stages, persistent blocks.
+// wgmma_mm: the matrix products rebuilt around Hopper's own machinery
+// (sm_90a): wgmma from swizzled shared memory, TMA loads that complete on
+// mbarriers, a ring of stages, persistent blocks.
 //
-// Replaces two Pallas TPU probe kernels of the JAX package:
+// Replaces three Pallas TPU probe kernels of the JAX package:
 //
 //   az_s8_mm_resident  tools/profile_fused_shapes.py::pallas_mm
 //                      out = a @ b, s8 x s8 -> s32, a [M, K], b [K, N <= 128]
@@ -10,6 +10,11 @@
 //   az_wgmma_tiled     tools/profile_pallas_mm.py::make_pallas_mm
 //                      out = a @ b, s8 -> s32 or bf16 -> f32, any size
 //                      (also takes s8_mm when `b` is too large to be resident)
+//   az_chained_dot     tools/profile_inkernel_dot.py::chained_dot
+//                      R times a <- tile(requant(a @ b), K / N), then a @ b,
+//                      s8 -> s32 or bf16 -> f32, a band of 64 rows in
+//                      registers for all R + 1 products (its design is
+//                      noted at the kernel below)
 //
 // What bounds them on the card, and what the designs do about it.
 //
@@ -64,6 +69,7 @@
 // Integer sums wrap in int32 (no .satfinite), like the TPU kernels'.
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -181,6 +187,10 @@ __device__ __forceinline__ void fence_reg(float& x) {
   asm volatile("" : "+f"(x)::"memory");
 }
 
+__device__ __forceinline__ void fence_reg(uint32_t& x) {
+  asm volatile("" : "+r"(x)::"memory");
+}
+
 template <typename T, int N>
 __device__ __forceinline__ void fence_acc(T (&d)[N]) {
 #pragma unroll
@@ -284,7 +294,121 @@ __device__ __forceinline__ void bf16_mma_256(float (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// m64nNk16, bf16 x bf16 -> f32; A K-major, B MN-major (transpose bit set).
+template <int N> struct Bf16Mma;
+
+template <> struct Bf16Mma<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" AZ_L0 "," AZ_L1
+        "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+        : AZ_O32("+f", d, 0)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <> struct Bf16Mma<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" AZ_L0 "," AZ_L1
+        "," AZ_L2 "," AZ_L3 "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : AZ_O64("+f", d, 0)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+// The same with A from registers (a warp's 16 rows: a[0] row g, a[1] row
+// g + 8, a[2] and a[3] the same rows 16 bytes further along K; g = lane / 4,
+// 4 bytes of K at 4 (lane % 4)), B from shared memory.  s8: m64nNk32;
+// bf16: m64nNk16, B MN-major (transpose bit set).
+template <int N> struct S8MmaRS;
+
+template <> struct S8MmaRS<32> {
+  static __device__ __forceinline__ void run(int32_t (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {" AZ_L0
+        "}, {%16, %17, %18, %19}, %20, p;\n}\n"
+        : AZ_O16("+r", d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <> struct S8MmaRS<64> {
+  static __device__ __forceinline__ void run(int32_t (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {" AZ_L0 "," AZ_L1
+        "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+        : AZ_O32("+r", d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <> struct S8MmaRS<128> {
+  static __device__ __forceinline__ void run(int32_t (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" AZ_L0 "," AZ_L1
+        "," AZ_L2 "," AZ_L3 "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+        : AZ_O64("+r", d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <int N> struct Bf16MmaRS;
+
+template <> struct Bf16MmaRS<64> {
+  static __device__ __forceinline__ void run(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" AZ_L0 "," AZ_L1
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : AZ_O32("+f", d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <> struct Bf16MmaRS<128> {
+  static __device__ __forceinline__ void run(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" AZ_L0 "," AZ_L1
+        "," AZ_L2 "," AZ_L3 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : AZ_O64("+f", d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
 // ------------------------------------------------------------ shared pieces
+
+// w[j] = byte j of r[0], r[1], r[2], r[3] (r[0]'s in the lowest byte): the
+// 4 x 4 byte block of four rows transposed, with PRMT.
+__device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4],
+                                             uint32_t (&w)[4]) {
+  const uint32_t x0 = __byte_perm(r[0], r[1], 0x5140);  // r0.0 r1.0 r0.1 r1.1
+  const uint32_t x1 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t y0 = __byte_perm(r[0], r[1], 0x7362);  // r0.2 r1.2 r0.3 r1.3
+  const uint32_t y1 = __byte_perm(r[2], r[3], 0x7362);
+  w[0] = __byte_perm(x0, x1, 0x5410);
+  w[1] = __byte_perm(x0, x1, 0x7632);
+  w[2] = __byte_perm(y0, y1, 0x5410);
+  w[3] = __byte_perm(y0, y1, 0x7632);
+}
 
 // The 4 x 4 byte block of row-major b [K, N] at (k, n), transposed: w[j]
 // holds b[k..k+3][n + j], lowest k in the lowest byte; zeros outside b.
@@ -307,14 +431,7 @@ __device__ __forceinline__ void load_bt4(const byte_t* __restrict__ b, int K,
       }
     }
   }
-  const uint32_t x0 = __byte_perm(r[0], r[1], 0x5140);  // r0.0 r1.0 r0.1 r1.1
-  const uint32_t x1 = __byte_perm(r[2], r[3], 0x5140);
-  const uint32_t y0 = __byte_perm(r[0], r[1], 0x7362);  // r0.2 r1.2 r0.3 r1.3
-  const uint32_t y1 = __byte_perm(r[2], r[3], 0x7362);
-  w[0] = __byte_perm(x0, x1, 0x5410);
-  w[1] = __byte_perm(x0, x1, 0x7632);
-  w[2] = __byte_perm(y0, y1, 0x5410);
-  w[3] = __byte_perm(y0, y1, 0x7632);
+  transpose4x4(r, w);
 }
 
 __device__ __forceinline__ void st2(int32_t* p, int32_t x, int32_t y) {
@@ -588,6 +705,241 @@ wgmma_tiled_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
+// ------------------------------------------------------------ chained dot
+//
+// R dependent products on a band of rows, then one more:
+//
+//   a <- tile(requant(a @ b), K / N)   R times;   return a @ b
+//
+// requant is (acc >> 8) wrapped to s8 (s8 -> s32), or acc * 0.001 rounded to
+// bf16 (bf16 -> f32).  The chain is serial within a band of rows and rows do
+// not interact, so one block of one warpgroup owns a band of 64 rows: the
+// tensor cores' work per step is small (64 x K x N), and what sets the pace
+// is how soon each step's result is the next step's operand.
+//
+// The design:
+//   * `b` is loaded ONCE per block and stays in shared memory: s8 `b` is
+//     read in 16-byte pieces of four rows and transposed on arrival (PRMT)
+//     into the K-major, 128-byte-swizzled panels the resident s8_mm kernel
+//     builds; bf16 `b` is read MN-major as it lies, by TMA, in blocks of
+//     [K rows][64 columns] (the instruction's transpose bit).  The band of
+//     `a` arrives by TMA, 128-byte swizzled, in [64 rows][128 bytes] panels,
+//     while the threads transpose `b`.
+//   * Each step is K / 32 bytes wgmma m64nNk32 (s8) or m64nNk16 (bf16) with
+//     the sum in registers, then requant in registers.
+//   * tile(d, K / N) @ b == sum over j of d @ b[jN : (j+1)N]: exact in int32
+//     (the sums wrap), the same f32 terms for bf16.  So the next step's A is
+//     only d's N columns, and the K loop's A wraps around them while the `b`
+//     descriptor walks all of K.
+//   * d never leaves the registers: the requantised accumulator is
+//     rearranged into wgmma's A fragments (bf16: the accumulator's pairs
+//     are the fragment's, as FlashAttention-3 feeds P; s8: two shuffles
+//     within a quad a fragment word), and every step after the first runs
+//     wgmma with A from registers: no store, fence or barrier between steps.
+//   * A cluster of two blocks splitting N (each block's half of d sent to
+//     the other through distributed shared memory, a cluster barrier a
+//     step) was built and measured: it lost at 7 of the 8 probe shapes it
+//     took and won by 8 % at the eighth, the cluster barrier costing more
+//     than the halved tensor time, so it is not kept (PERF.md).
+//
+// What bounds it: the operation bound (2 M K N (R + 1) at 1,979 TOP/s s8 or
+// 989 TFLOP/s bf16) counts all 132 SMs busy all the time, which a chain of
+// dependent steps on ceil(M / 64) bands cannot be: the bound is out of
+// reach, and the kernel aims at the latency of one step and of the loads
+// before the first.
+//
+// Shared memory (from a 1024-byte aligned base): bt (b, as above), band
+// (panels of the `a` band), one mbarrier.
+constexpr int CD_ROWS = 64;
+constexpr int CD_PANEL = CD_ROWS * ROW_BYTES;  // 8 KB
+constexpr int BT_BATCH = 6;  // 16-byte pieces of four rows of s8 b in flight
+
+struct ChainLayout {
+  int panels, b_bytes, band_bytes, total;
+};
+
+__host__ __device__ __forceinline__ ChainLayout chain_layout(int N, int K,
+                                                              int es) {
+  ChainLayout l;
+  l.panels = (K * es + ROW_BYTES - 1) / ROW_BYTES;
+  l.b_bytes = es == 1 ? l.panels * ROW_BYTES * N : K * ROW_BYTES * (N / 64);
+  l.band_bytes = l.panels * CD_PANEL;
+  l.total = 1024 + l.b_bytes + l.band_bytes + 16;
+  return l;
+}
+
+template <int ES, int N> struct ChainMma;
+template <int N> struct ChainMma<1, N> : S8Mma<N> {};
+template <int N> struct ChainMma<2, N> : Bf16Mma<N> {};
+template <int ES, int N> struct ChainMmaRS;
+template <int N> struct ChainMmaRS<1, N> : S8MmaRS<N> {};
+template <int N> struct ChainMmaRS<2, N> : Bf16MmaRS<N> {};
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// d = requant(acc) as the A fragments of the next step, set u covering K
+// bytes [32 u, 32 u + 32) of d's row (see S8MmaRS).  bf16: the accumulator's
+// register pairs are the fragment's (columns 2t, 2t + 1 of each 8).  s8: a
+// fragment word holds 4 columns 4t..4t+3, which two lanes of the quad hold
+// as pairs, so each lane packs its pairs of two column groups into one word
+// and two shuffles fetch the halves it needs.
+template <int ES, int N>
+__device__ __forceinline__ void requant_to_fragments(
+    const typename Acc<ES>::type (&acc)[N / 2], uint32_t (&a)[N * ES / 32][4],
+    int lane) {
+#pragma unroll
+  for (int u = 0; u < N * ES / 32; ++u) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if constexpr (ES == 1) {
+          const int j0 = 4 * u + 2 * half;
+          auto pair = [&](int j) {
+            return (static_cast<uint32_t>(acc[4 * j + 2 * h] >> 8) & 0xffu) |
+                   ((static_cast<uint32_t>(acc[4 * j + 2 * h + 1] >> 8) & 0xffu)
+                    << 8);
+          };
+          const uint32_t packed = pair(j0) | (pair(j0 + 1) << 16);
+          const int t = lane % 4, src = (lane & ~3) | (2 * (t & 1));
+          const uint32_t x = __shfl_sync(0xffffffffu, packed, src);
+          const uint32_t y = __shfl_sync(0xffffffffu, packed, src + 1);
+          const int sel = (t >> 1) * 16;
+          a[u][2 * half + h] =
+              ((x >> sel) & 0xffffu) | (((y >> sel) & 0xffffu) << 16);
+        } else {
+          const int j = 2 * u + half;
+          __nv_bfloat162 v = __floats2bfloat162_rn(
+              acc[4 * j + 2 * h] * 0.001f, acc[4 * j + 2 * h + 1] * 0.001f);
+          a[u][2 * half + h] = *reinterpret_cast<uint32_t*>(&v);
+        }
+      }
+    }
+  }
+}
+
+// One block: one warpgroup, one band of 64 rows, all of b.
+template <int ES, int N>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+chained_dot_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_b,
+                   const byte_t* __restrict__ b,
+                   typename Acc<ES>::type* __restrict__ out, int M, int K,
+                   int R) {
+  typedef typename Acc<ES>::type acc_t;
+  extern __shared__ byte_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  byte_t* const sm = smem_raw + (base - raw);
+
+  const ChainLayout l = chain_layout(N, K, ES);
+  const int ksteps = K * ES / 32;
+  const uint32_t bt = base;
+  const uint32_t band = bt + l.b_bytes;
+  const uint32_t bar = band + l.band_bytes;
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * CD_ROWS;
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, l.band_bytes + (ES == 2 ? l.b_bytes : 0));
+    for (int p = 0; p < l.panels; ++p)
+      tma_load_2d(band + p * CD_PANEL, &map_a, bar, p * (ROW_BYTES / ES), row0);
+    if constexpr (ES == 2) {
+      // b [K, N] as it lies: column block c is [K rows][128 bytes] at c K 128.
+      for (int c = 0; c < N / 64; ++c)
+        for (int k0 = 0; k0 < K; k0 += 64)
+          tma_load_2d(bt + c * K * ROW_BYTES + k0 * ROW_BYTES, &map_b, bar,
+                      64 * c, k0);
+    }
+  }
+  if constexpr (ES == 1) {
+    // Item (k4, n16): rows 4 k4 .. 4 k4 + 3 of b, columns 16 n16 .. + 15, in
+    // four 16-byte loads; neighbouring lanes take neighbouring k4, so a
+    // warp's stores fill whole 128-byte rows of a panel, one to a bank.
+    const int K4 = K / 4, items = K4 * (N / 16);
+    for (int i0 = tid; i0 < items; i0 += WG_THREADS * BT_BATCH) {
+      uint4 r[BT_BATCH][4];
+#pragma unroll
+      for (int u = 0; u < BT_BATCH; ++u) {
+        const int i = i0 + u * WG_THREADS;
+        if (i >= items) continue;
+        const byte_t* p =
+            b + static_cast<size_t>(4 * (i % K4)) * N + 16 * (i / K4);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          r[u][q] = __ldg(reinterpret_cast<const uint4*>(p + q * N));
+      }
+#pragma unroll
+      for (int u = 0; u < BT_BATCH; ++u) {
+        const int i = i0 + u * WG_THREADS;
+        if (i >= items) continue;
+        const int k = 4 * (i % K4), kk = k % ROW_BYTES;
+        byte_t* panel = sm + (k / ROW_BYTES) * (N * ROW_BYTES);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const uint32_t rows[4] = {word_of(r[u][0], c), word_of(r[u][1], c),
+                                    word_of(r[u][2], c), word_of(r[u][3], c)};
+          uint32_t w[4];
+          transpose4x4(rows, w);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int row = 16 * (i / K4) + 4 * c + j;
+            const int off =
+                row * ROW_BYTES + ((((kk >> 4) ^ (row & 7)) << 4) | (kk & 15));
+            *reinterpret_cast<uint32_t*>(panel + off) = w[j];
+          }
+        }
+      }
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();
+  mbar_wait(bar, 0);
+
+  const int warp = tid / 32, lane = tid % 32;
+  auto b_desc = [&](int ks) {
+    if constexpr (ES == 1)
+      return make_desc(bt + (ks >> 2) * (N * ROW_BYTES) + (ks & 3) * 32, 16,
+                       1024);
+    else
+      return make_desc(bt + ks * 16 * ROW_BYTES, K * ROW_BYTES, 1024);
+  };
+  constexpr int SETS = N * ES / 32;  // A fragments of one copy of d
+  uint32_t frag[SETS][4];
+  acc_t acc[N / 2] = {};
+  for (int step = 0;; ++step) {
+    fence_acc(acc);
+    wgmma_fence();
+    if (step == 0) {  // A: the band in shared memory
+      for (int ks = 0; ks < ksteps; ++ks)
+        ChainMma<ES, N>::run(
+            acc, make_desc(band + (ks >> 2) * CD_PANEL + (ks & 3) * 32, 16, 1024),
+            b_desc(ks), ks != 0);
+    } else {  // A: d, from the registers, once for every N columns of K
+      for (int k0 = 0; k0 < ksteps; k0 += SETS) {
+#pragma unroll
+        for (int u = 0; u < SETS; ++u)
+          ChainMmaRS<ES, N>::run(acc, frag[u], b_desc(k0 + u), (k0 | u) != 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+#pragma unroll
+    for (int u = 0; u < SETS; ++u) fence_acc(frag[u]);  // read until here
+    if (step == R) break;
+    requant_to_fragments<ES, N>(acc, frag, lane);
+  }
+  store_acc(out, M, N, true, row0 + warp * 16 + lane / 4, 2 * (lane % 4), acc);
+}
+
 // ------------------------------------------------------------------- host
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -721,6 +1073,20 @@ cudaError_t launch_tiled(const void* a, const void* b, void* bt, void* out,
   return cudaGetLastError();
 }
 
+template <int ES, int N>
+cudaError_t launch_chained(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                           const void* b, void* out, int M, int K, int R,
+                           int smem, cudaStream_t stream) {
+  static const cudaError_t allowed = allow_smem(chained_dot_kernel<ES, N>);
+  if (allowed != cudaSuccess) return allowed;
+  chained_dot_kernel<ES, N><<<(M + CD_ROWS - 1) / CD_ROWS, WG_THREADS, smem,
+                              stream>>>(map_a, map_b,
+                                        static_cast<const byte_t*>(b),
+                                        static_cast<typename Acc<ES>::type*>(out),
+                                        M, K, R);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -771,6 +1137,52 @@ int az_wgmma_tiled(const void* a, const void* b, void* bt, void* out, int M,
   if (elem_size == 1) return launch_tiled<1>(a, b, bt, out, M, N, K, lda, ldb, s);
   if (elem_size == 2) return launch_tiled<2>(a, b, bt, out, M, N, K, lda, ldb, s);
   return cudaErrorInvalidValue;
+}
+
+// The chained dot's dynamic shared memory a block, or -1 where its kernel
+// does not take the shape: elem_size 1 (s8) with N in {32, 64, 128}, or 2
+// (bf16) with N in {64, 128}; K a positive multiple of N; b and the band
+// within one block's shared memory.
+int az_chained_smem(int N, int K, int elem_size) {
+  const bool n_ok = N == 64 || N == 128 || (N == 32 && elem_size == 1);
+  if ((elem_size != 1 && elem_size != 2) || !n_ok || K <= 0 || K > (1 << 16) ||
+      K % N != 0)
+    return -1;
+  const int total = chain_layout(N, K, elem_size).total;
+  return total <= SMEM_MAX ? total : -1;
+}
+
+// a [M, K] rows `lda` elements apart (16-byte aligned base and pitch), b
+// [K, N] dense with a 16-byte aligned base, out [M, N] dense; shapes as
+// az_chained_smem takes them.
+int az_chained_dot(const void* a, const void* b, void* out, int M, int N,
+                   int K, int lda, int R, int elem_size, void* stream) {
+  if (M <= 0) return cudaSuccess;
+  const int smem = az_chained_smem(N, K, elem_size);
+  const int es = elem_size;
+  if (smem < 0 || R < 0 || lda < K ||
+      !tma_ok(a, static_cast<long long>(lda) * es) ||
+      !tma_ok(b, static_cast<long long>(N) * es))
+    return cudaErrorInvalidValue;
+  CUtensorMap map_a, map_b;
+  cudaError_t err = make_map(&map_a, es, a, K, M,
+                             static_cast<long long>(lda) * es, ROW_BYTES / es,
+                             CD_ROWS);
+  if (err != cudaSuccess) return err;
+  if (es == 2) {
+    err = make_map(&map_b, es, b, N, K, static_cast<long long>(N) * es, 64, 64);
+    if (err != cudaSuccess) return err;
+  } else {
+    map_b = map_a;  // not read: s8 b is loaded by the threads
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (es == 1) {
+    if (N == 32) return launch_chained<1, 32>(map_a, map_b, b, out, M, K, R, smem, s);
+    if (N == 64) return launch_chained<1, 64>(map_a, map_b, b, out, M, K, R, smem, s);
+    return launch_chained<1, 128>(map_a, map_b, b, out, M, K, R, smem, s);
+  }
+  if (N == 64) return launch_chained<2, 64>(map_a, map_b, b, out, M, K, R, smem, s);
+  return launch_chained<2, 128>(map_a, map_b, b, out, M, K, R, smem, s);
 }
 
 const char* az_cuda_error_string(int code) {

@@ -11,7 +11,8 @@ backprop.  The root keeps dense [B, A] edge statistics; deeper nodes keep
 Where the JAX search reads arena rows through one-hot einsum sweeps (a
 per-lane row read serialises into row DMAs on a TPU), the port reads every
 per-lane arena row through ``ops.gather_rows``: on a GPU it is a coalesced
-load of just the rows needed.  So the TPU workarounds are gone: child
+load of just the rows needed, and the arenas read at one index (a level's
+node rows, a wave's leaf rows) come in one launch (``gather_rows_many``).  So the TPU workarounds are gone: child
 pointers and slot actions are int32, the board arena is plain int8 rows, and
 child visit/value statistics are read exactly (the JAX path reads them
 through bf16, ``_radix_gather_rows``, which is inexact above 256).  Slot
@@ -35,7 +36,7 @@ from typing import Callable, NamedTuple, Tuple
 import torch
 
 from alphazero_tpu_torch.core.types import terminal_value
-from alphazero_tpu_torch.ops.gather_rows import gather_rows
+from alphazero_tpu_torch.ops.gather_rows import gather_rows, gather_rows_many
 
 # eval_fn: (obs [B, C, H, W], to_play [B] i32) -> (logits [B, A], value [B])
 EvalFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -312,16 +313,17 @@ def _select_wave(tree: Tree, config: MCTSConfig, W: int) -> _WaveSelect:
     depth = 1
     while depth < config.max_depth and bool((~done).any()):
         live = ~done
-        term_here = gather_rows(term_arena, node)[..., 0]
-        prior_row = gather_rows(tree.prior, node).float()  # [B, W, K]
-        child_row = gather_rows(tree.cchild, node)  # i32 [B, W, K]
+        # The rows every walker reads at its node, in one launch.
+        term_here, prior_row, child_row, nstats = gather_rows_many(
+            (term_arena, tree.prior, tree.cchild, stats), node)
+        term_here = term_here[..., 0]
+        prior_row = prior_row.float()  # [B, W, K]; child_row i32 [B, W, K]
         cidx = child_row.clamp(min=0).reshape(B, W * K)
         cstats = gather_rows(stats, cidx).reshape(B, W, K, 2)
         has_child = child_row >= 0
         cv = torch.where(has_child, cstats[..., 0], 0.0)
         cw = torch.where(has_child, cstats[..., 1], 0.0)
-        nstats = gather_rows(stats, node)  # [B, W, 2]
-        nv, nw = nstats[..., 0], nstats[..., 1]
+        nv, nw = nstats[..., 0], nstats[..., 1]  # nstats [B, W, 2]
         node_value = nw / nv.clamp(min=1.0)
 
         extra_k = torch.zeros((B, W, K), device=dev)
@@ -427,7 +429,10 @@ def _simulate_wave(env, eval_fn: EvalFn, tree: Tree, base: int,
     expand = expand0 & (first == wr[None, :])
 
     # --- batched leaf pipeline over B*W ---
-    rows = [gather_rows(arena, leafs).reshape(B * W, -1) for arena in tree.states]
+    # The leaves' state rows and terminal values, in one launch (the
+    # installs and links below write neither at an existing node).
+    *rows, leaf_tval = gather_rows_many(tree.states + (_col(tree.tvalue),), leafs)
+    rows = [r.reshape(B * W, -1) for r in rows]
     leaf_state = env.from_arena_rows(*rows)
     child_state = env.step(leaf_state, actions.reshape(-1))
     obs = env.observation(child_state)
@@ -464,8 +469,7 @@ def _simulate_wave(env, eval_fn: EvalFn, tree: Tree, base: int,
     _link(tree.cchild.view(B, N * K), deep_target, expand & ~from_root, new_ids)
 
     # --- combined backprop ---
-    leaf_tval = gather_rows(_col(tree.tvalue), leafs)[..., 0]
-    leaf_val = torch.where(~expand0, leaf_tval,
+    leaf_val = torch.where(~expand0, leaf_tval[..., 0],
                            torch.where(cterm_w, ctval_w, value_w))
     L = lengths + expand0.to(torch.int32)  # backprop start depth
     sgn = torch.where(L % 2 == 0, leaf_val, -leaf_val)

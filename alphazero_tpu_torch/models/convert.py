@@ -89,13 +89,13 @@ def _tree_to_torch(x: Any, device) -> Any:
     return torch.from_numpy(arr).to(device)
 
 
-def folded_from_jax(fp_numpy: Dict, device="cpu") -> Dict:
+def folded_from_jax(fp_numpy: Dict, device="cuda") -> Dict:
     """The folded-parameter dict ``fp`` of JAX ``extract_folded`` (leaves as
     numpy arrays) as the port's ``fp``."""
     return _tree_to_torch(fp_numpy, device)
 
 
-def quant_params_from_jax(qp_numpy: Dict, device="cpu") -> Dict:
+def quant_params_from_jax(qp_numpy: Dict, device="cuda") -> Dict:
     """The quantised-parameter dict ``qp`` of JAX ``quantize`` /
     ``build_quantized_params`` (leaves as numpy arrays) as the port's
     ``qp``."""

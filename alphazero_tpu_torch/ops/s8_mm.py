@@ -15,7 +15,7 @@ raises; on a CPU tensor it takes the plain version beside it (``*_plain``).
 ``<wrapper>.launches`` counts calls that launched a kernel.  Any M, N and K
 are taken.
 
-``s8_mm`` and ``tiled_mm`` run the wgmma / TMA kernels of
+``s8_mm``, ``tiled_mm`` and ``chained_dot`` run the wgmma / TMA kernels of
 ``csrc/wgmma_mm.cu``.  ``s8_mm`` takes the kernel that keeps all of ``b``
 in shared memory where ``b`` fits (``s8_mm_route``: N <= 128 and the padded
 ``b`` within ``RESIDENT_B_MAX`` bytes) and the tiled kernel otherwise;
@@ -24,8 +24,10 @@ in shared memory where ``b`` fits (``s8_mm_route``: N <= 128 and the padded
 know the true sizes, so nothing is padded for size; a matrix is copied only
 when the TMA unit cannot read it as it lies (``_rows16``: a base or a row
 pitch that is no multiple of 16 bytes, such as K = 99 packed densely).
-``s8_mm_multi`` and ``chained_dot`` run the ``mma.sync`` kernels of
-``csrc/s8_mm.cu``, which want K and N zero-padded to multiples of 16.
+``chained_dot`` keeps all of ``b`` in one block's shared memory and a band
+of 64 rows of ``a`` in its registers; ``chained_dot_smem`` is the rule for
+the shapes it takes.  ``s8_mm_multi`` runs the ``mma.sync`` kernel of
+``csrc/s8_mm.cu``, which wants K and N zero-padded to multiples of 16.
 
 The plain versions are exact for s8: products of values in [-128, 127]
 summed in float32 stay integers below 2**24 while ``K * 128**2 <= 2**24``
@@ -47,7 +49,7 @@ _ALIGN = 16  # elements: the mma.sync kernels want K and N padded to this
 _F32_EXACT_K = (1 << 24) // (128 * 128)  # 1024
 RESIDENT_B_MAX = 96 * 1024  # bytes; RESIDENT_B_MAX of csrc/wgmma_mm.cu
 _SMEM_MAX = 232448  # bytes of shared memory one block may use on sm_90
-_CD_ROWS = 64  # rows of `a` per block in the chained-dot kernel
+_CD_ROWS = 64  # rows of `a` a band in the chained-dot kernel
 
 
 # ------------------------------------------------------------ plain versions
@@ -122,6 +124,24 @@ def kernel_accepts(route: str, M: int, N: int, K: int, dtype: torch.dtype) -> bo
         return (dtype == torch.bfloat16
                 or (dtype == torch.int8 and -(-N // 64) <= 65535))
     raise ValueError(f"unknown route {route!r}")
+
+
+def chained_dot_smem(N: int, K: int, dtype: torch.dtype):
+    """Dynamic shared memory one block of the chained-dot kernel asks for at
+    ``b [K, N]``, or None where it does not take the shape
+    (``az_chained_smem`` of ``csrc/wgmma_mm.cu``): N in {32, 64, 128} for s8
+    and {64, 128} for bf16, K a positive multiple of N, ``b`` (s8: K-major
+    panels of 128 bytes of K; bf16: as it lies) and the band of ``a`` (64
+    rows, K up to a multiple of 128 bytes) within one block's shared
+    memory."""
+    es = {torch.int8: 1, torch.bfloat16: 2}.get(dtype)
+    if (es is None or N not in ((32, 64, 128) if es == 1 else (64, 128))
+            or K <= 0 or K > 1 << 16 or K % N):
+        return None
+    panels = -(-K * es // 128)
+    b_bytes = panels * 128 * N if es == 1 else K * 128 * (N // 64)
+    total = 1024 + b_bytes + panels * _CD_ROWS * 128 + 16
+    return total if total <= _SMEM_MAX else None
 
 
 # Plain twins of the two ways the kernels turn the row-major s8 ``b [K, N]``
@@ -222,8 +242,9 @@ def _bind() -> SimpleNamespace:
                          (wg.az_wgmma_tiled, [p, p, p, p, i, i, i, i, i, i, p]),
                          (wg.az_resident_b_max, []), (wg.az_tiled_smem, []),
                          (wg.az_resident_smem_fixed, []),
-                         (mma.az_s8_mm_multi, [p, p, p, i, i, i, i, p]),
-                         (mma.az_chained_dot, [p, p, p, i, i, i, i, i, p])):
+                         (wg.az_chained_dot, [p, p, p, i, i, i, i, i, i, p]),
+                         (wg.az_chained_smem, [i, i, i]),
+                         (mma.az_s8_mm_multi, [p, p, p, i, i, i, i, p])):
             fn.restype = ctypes.c_int
             fn.argtypes = args
         if wg.az_resident_b_max() != RESIDENT_B_MAX:
@@ -232,7 +253,7 @@ def _bind() -> SimpleNamespace:
         _fns = SimpleNamespace(
             wg=wg, mma=mma, resident=wg.az_s8_mm_resident,
             tiled=wg.az_wgmma_tiled, multi=mma.az_s8_mm_multi,
-            chained=mma.az_chained_dot)
+            chained=wg.az_chained_dot)
     return _fns
 
 
@@ -363,29 +384,27 @@ def chained_dot(a: torch.Tensor, b: torch.Tensor, R: int) -> torch.Tensor:
         return a @ b                                          [M, N]
 
     requant is ``(acc >> 8)`` wrapped to s8 for s8 inputs (s32 result) and
-    ``acc * 0.001`` rounded to bf16 for bf16 inputs (f32 result).  N must be
-    a multiple of 32 and K a multiple of N; ``b`` and a 64-row band of ``a``
-    (twice) must fit one block's shared memory."""
+    ``acc * 0.001`` rounded to bf16 for bf16 inputs (f32 result).  Shapes as
+    ``chained_dot_smem`` takes them."""
     _check_pair("chained_dot", a, b, (torch.int8, torch.bfloat16))
     M, K = a.shape
     N = b.shape[1]
-    if R < 0 or N % 32 or K % N:
-        raise ValueError(f"chained_dot needs R >= 0, N % 32 == 0 and "
-                         f"K % N == 0, got R={R}, K={K}, N={N}")
+    if R < 0 or chained_dot_smem(N, K, a.dtype) is None:
+        raise ValueError(f"chained_dot takes R >= 0 and, for {a.dtype}, K a "
+                         f"multiple of N with N in "
+                         f"{'(32, 64, 128)' if a.dtype == torch.int8 else '(64, 128)'}"
+                         f" and b within shared memory; got R={R}, K={K}, N={N}")
     if a.device.type == "cpu":
         return chained_dot_plain(a, b, R)
-    es = a.element_size()
-    smem = K * (N * es + 16) + 2 * _CD_ROWS * (K * es + 16)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"chained_dot: K={K}, N={N} need {smem} bytes of "
-                         f"shared memory, more than {_SMEM_MAX}")
-    a_p, b_p = _aligned(a), _aligned(b)
     out = torch.empty((M, N), dtype=_acc_dtype(a.dtype), device=a.device)
+    if M == 0:
+        return out
+    a_p, b_p = _rows16(a), _aligned(b)
     fns = _fns or _bind()
     code = fns.chained(a_p.data_ptr(), b_p.data_ptr(), out.data_ptr(), M, N, K,
-                       R, es, _build.stream_of(a))
+                       a_p.stride(0), R, a.element_size(), _build.stream_of(a))
     if code:
-        _build.check(fns.mma, code, "chained_dot")
+        _build.check(fns.wg, code, "chained_dot")
     chained_dot.launches += 1
     return out
 

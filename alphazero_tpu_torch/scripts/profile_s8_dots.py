@@ -15,7 +15,7 @@ without timing: ragged M, N and K on each side of every tile edge, several
 rounds of the persistent grid, both routes of ``s8_mm``, -128 among the
 values, inputs that are strided, misaligned or pitched.
 
-    python -m alphazero_tpu_torch.scripts.profile_s8_dots [--reps 20] [--chain 64]
+    python -m alphazero_tpu_torch.scripts.profile_s8_dots [--reps 20] [--chain 64] [--only chained_dot]
 
 The package calls no library product of the same function, so
 ``library_ms`` is null here; ``chip_smoke.py`` passes its yardstick calls
@@ -90,9 +90,11 @@ def trunk_cases(boards: int = 512, cells: int = 225):
 
 
 def edge_cases():
-    """Shapes and layouts on each side of every edge of the two wgmma
-    kernels (row tiles of 128, column tiles of 32 / 64 / 128 / 256, K steps
-    of 32 and 128 bytes, the resident limit of ``s8_mm``), checked only."""
+    """Shapes and layouts on each side of every edge of the wgmma kernels
+    (row tiles of 128, column tiles of 32 / 64 / 128 / 256, K steps of 32 and
+    128 bytes, the resident limit of ``s8_mm``; the chained dot's bands of 64
+    rows, its N, K = N, R = 0, its shared-memory limit, both dtypes),
+    checked only."""
     s8, bf = torch.int8, torch.bfloat16
     ragged = [(1, 1, 1), (37, 99, 21), (130, 577, 65), (129, 64, 513),
               (300, 200, 8), (257, 130, 256), (64, 256, 128)]
@@ -121,6 +123,26 @@ def edge_cases():
         Case("tiled_mm", "edge_bf16_strided", bf, (500, 576), (576, 64), layout="strided"),
         Case("tiled_mm", "edge_bf16_misaligned", bf, (500, 99), (99, 64), layout="misaligned"),
         Case("tiled_mm", "edge_bf16_pitched", bf, (500, 100), (100, 64), layout="pitched"),
+    ]
+    # chained_dot: M under one band, one band, ragged, over 132 bands, K = N,
+    # N = 32 / 64 / 128, R = 0, the largest K that fits, both dtypes
+    chains = [(s8, 1, 64, 32, 3), (s8, 37, 128, 64, 3), (s8, 64, 128, 128, 2),
+              (s8, 1000, 576, 64, 8), (s8, 130, 96, 32, 2), (s8, 300, 128, 128, 0),
+              (s8, 200, 64, 64, 5), (s8, 500, 256, 128, 4), (s8, 8500, 128, 64, 2),
+              (s8, 70, 1152, 128, 1), (bf, 37, 128, 64, 3), (bf, 1000, 256, 128, 4),
+              (bf, 100, 128, 128, 0), (bf, 300, 64, 64, 2), (bf, 8500, 128, 128, 2),
+              (bf, 70, 512, 128, 1)]
+    for dt, M, K, N, R in chains:
+        tag = "s8" if dt == s8 else "bf16"
+        cases.append(Case("chained_dot", f"edge_{tag}_{M}x{K}x{N}_R{R}", dt,
+                          (M, K), (K, N), R))
+    cases += [
+        Case("chained_dot", "edge_s8_minus128", s8, (500, 128), (128, 64), 3,
+             lowest=-128),
+        Case("chained_dot", "edge_s8_pitched", s8, (500, 96), (96, 32), 2,
+             layout="pitched"),
+        Case("chained_dot", "edge_bf16_misaligned", bf, (300, 128), (128, 64), 2,
+             layout="misaligned"),
     ]
     return cases
 
@@ -200,10 +222,11 @@ def run_case(case: Case, gen: torch.Generator, reps: int,
     a, b = make_inputs(case, gen)
     fn = getattr(ops, case.kernel)
     plain = getattr(ops, case.kernel + "_plain")
-    args = (a, b, case.R) if case.kernel == "chained_dot" else (a, b)
+    chain = case.kernel == "chained_dot"
+    args = (a, b, case.R) if chain else (a, b)
     # A long bf16 chain shrinks to zero (every step scales by 0.001), which
     # would compare nothing: the check stops at CHECK_CHAIN steps.
-    checked = (a, b, min(case.R, CHECK_CHAIN)) if len(args) == 3 else args
+    checked = (a, b, min(case.R, CHECK_CHAIN)) if chain else args
     out, ref = fn(*checked), plain(*checked)
     torch.cuda.synchronize()
     err = float((out.double() - ref.double()).abs().max())
@@ -225,9 +248,14 @@ def run_case(case: Case, gen: torch.Generator, reps: int,
     n_ops, n_bytes = work(case)
     t_ops, t_bytes = n_ops / PEAK_OPS[case.dtype], n_bytes / HBM_BYTES_PER_S
     ms = cuda_ms(lambda: fn(*args), reps)
+    g_ms = graph_ms(lambda: fn(*args), reps)
+    if chain:  # the chain's length apart: R = 0 leaves the loads of `b` and
+        # the band, one product and the store
+        row["graph_ms_R0"] = graph_ms(lambda: fn(a, b, 0), reps)
+        row["step_us"] = (g_ms - row["graph_ms_R0"]) / max(case.R, 1) * 1e3
     return {
         **row,
-        "ms": ms, "graph_ms": graph_ms(lambda: fn(*args), reps),
+        "ms": ms, "graph_ms": g_ms,
         "tops": n_ops / (ms * 1e-3) / 1e12,
         "plain_ms": cuda_ms(lambda: plain(*args), max(2, reps // 4)),
         "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -243,6 +271,8 @@ def main(argv=None) -> list:
     p.add_argument("--chain", type=int, default=64,
                    help="R of the chained-dot cases")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--only", default=None,
+                   help="run the cases of this wrapper alone (e.g. chained_dot)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_s8_dots needs a CUDA card")
@@ -250,9 +280,12 @@ def main(argv=None) -> list:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = []
     for case in edge_cases():
-        rows.append(run_case(case, gen, reps=0))
-        print(json.dumps(rows[-1]), flush=True)
+        if args.only in (None, case.kernel):
+            rows.append(run_case(case, gen, reps=0))
+            print(json.dumps(rows[-1]), flush=True)
     for case in trunk_cases() + probe_cases(args.chain):
+        if args.only not in (None, case.kernel):
+            continue
         rows.append(run_case(case, gen, args.reps))
         print(json.dumps(rows[-1]), flush=True)
     bad = [f"{r['kernel']}:{r['case']}" for r in rows if not r["agrees"]]

@@ -1,7 +1,7 @@
 """Host cost of the kernel wrappers: eager time against CUDA-graph time.
 
-For ``gather_rows`` at the search's shapes and ``s8_mm`` at the int8
-trunk's and the probes' shapes, one JSON line each with
+For ``gather_rows`` and ``gather_rows_many`` at the search's shapes and
+``s8_mm`` at the int8 trunk's and the probes' shapes, one JSON line each with
 
   ``ms``        calls issued back to back from Python, by CUDA events: what
                 a call costs its caller, the wrapper's host work included;
@@ -18,13 +18,16 @@ trunk's and the probes' shapes, one JSON line each with
 ``s8_mm`` call (argument check, routing, alignment check, output
 allocation, the C call that encodes the tensor map and launches) beside a
 bare ``torch.add`` on the same host; it reaches into ``ops/s8_mm.py`` and so
-needs a checkout that has those pieces.
+needs a checkout that has those pieces.  It also times the two ways
+``gather_rows_many`` could allocate a level's four outputs: one
+``torch.empty`` each, or one buffer carved into views.
 
 Run as a file, it measures whichever checkout of the package comes first on
 ``PYTHONPATH`` (so two trees can be compared in one go on one card);
 the first line names that checkout.  It carries its own timers and uses
-nothing of the package but the two wrappers, so that it also runs against a
-checkout older than itself.
+nothing of the package but the wrappers, so that it also runs against a
+checkout older than itself (one without ``gather_rows_many`` skips its
+lines).
 """
 from __future__ import annotations
 
@@ -35,8 +38,17 @@ import time
 import torch
 
 import alphazero_tpu_torch
+from alphazero_tpu_torch.ops import gather_rows as gather_ops
 from alphazero_tpu_torch.ops.gather_rows import gather_rows
 from alphazero_tpu_torch.ops.s8_mm import s8_mm
+
+gather_rows_many = getattr(gather_ops, "gather_rows_many", None)
+
+# A level's arenas as the search reads them at one index (K, dtype): the
+# terminal flag, slot priors, child pointers, node stats; and a wave's leaf
+# rows: board, meta, terminal value.
+LEVEL = ((1, torch.bool), (32, torch.bfloat16), (32, torch.int32), (2, torch.float32))
+LEAF = ((225, torch.int8), (12, torch.int32), (1, torch.float32))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -115,7 +127,28 @@ def pieces() -> dict:
         "c_call": least_us(lambda: fns.resident(*ptrs, 256, 64, 128, 128, stream)),
         "whole_s8_mm": least_us(lambda: s8_mm(a, b)),
         "torch_add": least_us(lambda: torch.add(out, 1)),
+        **alloc_ways(),
     }
+
+
+def alloc_ways() -> dict:
+    """Host microseconds of the two ways to allocate a level's four
+    ``gather_rows_many`` outputs at B=1024, W=16."""
+    B, M = 1024, 16
+    sizes = [B * M * K * torch.empty((), dtype=dt).element_size() for K, dt in LEVEL]
+    offs = [sum(-(-n // 16) * 16 for n in sizes[:k]) for k in range(len(sizes))]
+    end = offs[-1] + sizes[-1]
+
+    def per_output():
+        return [torch.empty((B, M, K), dtype=dt, device="cuda") for K, dt in LEVEL]
+
+    def carved():
+        buf = torch.empty(end, dtype=torch.uint8, device="cuda")
+        return [buf[o:o + n].view(dt).view(B, M, K)
+                for o, n, (K, dt) in zip(offs, sizes, LEVEL)]
+
+    return {"many_alloc_one_empty_per_output": least_us(per_output),
+            "many_alloc_one_buffer_carved": least_us(carved)}
 
 
 def main(argv=None) -> None:
@@ -139,6 +172,17 @@ def main(argv=None) -> None:
         idx = torch.randint(0, 801, (1024, M), generator=gen, device="cuda",
                             dtype=torch.int32)
         cases.append(("gather_rows", name, lambda arr=arr, idx=idx: gather_rows(arr, idx)))
+    # a level's and a wave's arenas: one launch, against one a arena
+    for name, arenas in (("level_rows", LEVEL), ("leaf_rows", LEAF)):
+        arrs = tuple(torch.randint(0, 100, (1024, 801, K), generator=gen,
+                                   device="cuda").to(dt) for K, dt in arenas)
+        idx = torch.randint(-1, 801, (1024, 16), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        if gather_rows_many is not None:
+            cases.append(("gather_rows_many", name,
+                          lambda arrs=arrs, idx=idx: gather_rows_many(arrs, idx)))
+        cases.append(("gather_rows x" + str(len(arrs)), name,
+                      lambda arrs=arrs, idx=idx: [gather_rows(a, idx) for a in arrs]))
     for name, M, K, N in (("conv3x3_64", 115200, 576, 64),
                           ("head_1x1", 115200, 64, 32),
                           ("probe_128x64", 14400, 128, 64),

@@ -7,15 +7,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: every CUDA source (gather_rows, s8_mm, wgmma_mm), one nvcc
      each, started together (sm_90a); prints each kernel's registers and
-     shared memory, and counts the wgmma and TMA instructions in
-     wgmma_mm's machine code (none would fail the run; skipped where the
-     toolkit has no cuobjdump);
+     shared memory, counts the wgmma and TMA instructions in wgmma_mm's
+     machine code and the IGMMA (s8) / HGMMA (bf16) instructions of every
+     chained_dot kernel (none would fail the run; skipped where the toolkit
+     has no cuobjdump), and holds the chained dot's shared-memory rule in
+     ops/s8_mm.py against the one its C entry point applies;
   3. kernels: each kernel against its plain PyTorch version on the card:
-     gather_rows at the search's shapes (bit for bit); the two wgmma
-     kernels (s8_mm, tiled_mm) at scripts/profile_s8_dots.edge_cases():
-     ragged M, N, K around every tile edge, several rounds of the
-     persistent grid, both routes of s8_mm, -128 among the values, strided,
-     misaligned and pitched inputs; then s8_mm at the int8 trunk's shapes
+     gather_rows at the search's shapes, at odd row lengths (1, 3, 7, 225,
+     227 bytes), from misaligned arenas and with int64 indices, and
+     gather_rows_many at the arenas the search reads at one index (all bit
+     for bit); the wgmma kernels (s8_mm, tiled_mm, chained_dot) at
+     scripts/profile_s8_dots.edge_cases(): ragged M, N, K around every tile
+     edge, several rounds of the persistent grid, both routes of s8_mm,
+     both dtypes of chained_dot, -128 among the values, strided, misaligned
+     and pitched inputs; then s8_mm at the int8 trunk's shapes
      and the probes' shapes, s8_mm_multi, chained_dot (R=8) and tiled_mm at
      the probes' shapes through scripts/profile_s8_dots.run_case (s8 bit
      for bit, bf16 within its stated tolerance); with CUDA-event times of
@@ -28,7 +33,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      driving make_host_actor at B=1024, 800 simulations, W=16, K=32,
      recycle on, for 3 moves (1 warm-up, 2 timed); checks root visit sums,
      action legality, and that gather_rows and s8_mm were launched, s8_mm
-     exactly as often as the chunk count predicts;
+     exactly as often as the chunk count predicts; prints gather launches a
+     move;
   6. the earlier main path (BN-folded bf16 net), shallower: 192 simulations,
      2 moves, same checks;
   7. the probe entry point scripts/profile_s8_dots.main, whose path runs
@@ -51,6 +57,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -112,7 +119,18 @@ def phase_build() -> None:
     log("[build] wgmma_mm dynamic shared memory a block: " + json.dumps({
         "tiled": ops.dynamic_smem_bytes("tiled"),
         "resident_576x64": ops.dynamic_smem_bytes("resident", 64, 576),
-        "resident_99x64": ops.dynamic_smem_bytes("resident", 64, 99)}))
+        "resident_99x64": ops.dynamic_smem_bytes("resident", 64, 99),
+        "chained_576x64": ops.chained_dot_smem(64, 576, torch.int8),
+        "chained_bf16_128x128": ops.chained_dot_smem(128, 128, torch.bfloat16)}))
+    # The chained dot's shape rule in Python against its C entry point's.
+    c_smem = ops._bind().wg.az_chained_smem
+    differ = [(N, K, es) for N in (16, 32, 48, 64, 96, 128, 256)
+              for K in (32, 64, 96, 128, 512, 576, 640, 768, 1152, 1280, 2048)
+              for es, dt in ((1, torch.int8), (2, torch.bfloat16))
+              if (ops.chained_dot_smem(N, K, dt) or -1) != c_smem(N, K, es)]
+    if differ:
+        raise AssertionError(f"chained_dot_smem differs from az_chained_smem at "
+                             f"(N, K, elem_size) {differ}")
     # The product kernels must really be wgmma fed by TMA: count both in the
     # machine code of the library just built.
     sass = _build.machine_code("wgmma_mm")
@@ -123,19 +141,44 @@ def phase_build() -> None:
     log(f"[build] wgmma_mm machine code: {json.dumps(counts)}")
     if not all(counts.values()):
         raise AssertionError(f"wgmma_mm was built without wgmma or TMA: {counts}")
+    # Every chained_dot kernel must be wgmma: IGMMA in the s8 ones
+    # (chained_dot_kernel<1, ...>), HGMMA in the bf16 ones (<2, ...>).
+    chained = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = _build.demangle(chunk.split()[0])
+        if "chained_dot_kernel<" in name:
+            es, n = re.findall(r"\d+", name.split("chained_dot_kernel<")[1])[:2]
+            op = "IGMMA" if es == "1" else "HGMMA"
+            chained[f"{'s8' if es == '1' else 'bf16'} N={n}"] = {
+                op: len(re.findall(op + r"\.", chunk))}
+    log(f"[build] chained_dot kernels: {json.dumps(chained)}")
+    if len(chained) != 5 or not all(n for c in chained.values() for n in c.values()):
+        raise AssertionError(f"chained_dot kernels without wgmma: {chained}")
 
 
-def _gather_case(name, B, N, K, M, dtype, lo, hi, gen):
-    from alphazero_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
-    from alphazero_tpu_torch.scripts.profile_s8_dots import graph_ms
-
+def _arena(B, N, K, dtype, gen, offset=0):
+    """A random contiguous arena [B, N, K]; ``offset`` bytes past an
+    aligned base."""
     if dtype.is_floating_point:
         arr = torch.randn((B, N, K), generator=gen, device="cuda").to(dtype)
     else:
         arr = torch.randint(-100, 100, (B, N, K), generator=gen,
                             device="cuda").to(dtype)
+    if offset:
+        raw = torch.empty(arr.numel() * arr.element_size() + offset,
+                          dtype=torch.uint8, device="cuda")
+        arr = raw[offset:].view(dtype).view(B, N, K).copy_(arr)
+    return arr
+
+
+def _gather_case(name, B, N, K, M, dtype, lo, hi, gen, offset=0,
+                 idx_dtype=torch.int32):
+    from alphazero_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
+    from alphazero_tpu_torch.scripts.profile_s8_dots import graph_ms
+
+    arr = _arena(B, N, K, dtype, gen, offset)
     idx = torch.randint(lo, hi, (B, M), generator=gen, device="cuda",
-                        dtype=torch.int32)
+                        dtype=idx_dtype)
     out = gather_rows(arr, idx)
     ref = gather_rows_plain(arr, idx)
     torch.cuda.synchronize()
@@ -147,7 +190,9 @@ def _gather_case(name, B, N, K, M, dtype, lo, hi, gen):
     distinct = int(torch.unique(flat).numel())
     bytes_moved = B * M * 4 + B * M * row_bytes + distinct * row_bytes
     row = {"case": name, "shape": [B, N, K], "idx": [B, M],
-           "dtype": str(dtype).replace("torch.", ""), "bit_equal": equal,
+           "dtype": str(dtype).replace("torch.", ""),
+           "idx_dtype": str(idx_dtype).replace("torch.", ""),
+           "base_offset": offset, "bit_equal": equal,
            "max_abs_err": err,
            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3}
     if lo >= 0 and hi <= N:  # torch.gather computes the same function here
@@ -166,8 +211,46 @@ def _gather_case(name, B, N, K, M, dtype, lo, hi, gen):
     return row
 
 
+def _gather_many_case(name, B, N, M, arenas, gen):
+    """gather_rows_many over ``arenas`` ((K, dtype), ...) at one index with
+    -1 among its entries, against its plain version and against one
+    gather_rows launch per arena."""
+    from alphazero_tpu_torch.ops.gather_rows import (
+        gather_rows, gather_rows_many, gather_rows_many_plain)
+    from alphazero_tpu_torch.scripts.profile_s8_dots import graph_ms
+
+    arrs = tuple(_arena(B, N, K, dt, gen) for K, dt in arenas)
+    idx = torch.randint(-1, N, (B, M), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    before = gather_rows.launches
+    outs = gather_rows_many(arrs, idx)
+    launches = gather_rows.launches - before
+    refs = gather_rows_many_plain(arrs, idx)
+    torch.cuda.synchronize()
+    equal = all(o.dtype == r.dtype and torch.equal(o.view(torch.uint8), r.view(torch.uint8))
+                for o, r in zip(outs, refs))
+    inside = (idx >= 0) & (idx < N)
+    flat = (torch.arange(B, device="cuda")[:, None] * N + idx.long())[inside]
+    distinct = int(torch.unique(flat).numel())
+    row_bytes = sum(a.shape[2] * a.element_size() for a in arrs)
+    bytes_moved = B * M * 4 + (B * M + distinct) * row_bytes
+    row = {"case": name, "arenas": [[K, str(dt).replace("torch.", "")] for K, dt in arenas],
+           "N": N, "idx": [B, M], "launches": launches, "bit_equal": equal,
+           "max_abs_err": max(float((o.float() - r.float()).abs().max())
+                              for o, r in zip(outs, refs)),
+           "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3, "library_ms": None}
+    row["ms"] = cuda_ms(lambda: gather_rows_many(arrs, idx))
+    row["graph_ms"] = graph_ms(lambda: gather_rows_many(arrs, idx), 50)
+    row["one_per_arena_ms"] = cuda_ms(lambda: [gather_rows(a, idx) for a in arrs])
+    row["one_per_arena_graph_ms"] = graph_ms(
+        lambda: [gather_rows(a, idx) for a in arrs], 50)
+    row["plain_ms"] = cuda_ms(lambda: gather_rows_many_plain(arrs, idx))
+    return row
+
+
 def phase_kernels() -> list:
     gen = torch.Generator(device="cuda").manual_seed(0)
+    i64 = dict(idx_dtype=torch.int64)
     cases = [
         # name, B, N, K, M, dtype, idx range: the search's shapes at B=1024,
         # N=801 nodes (800 simulations), W=16 walkers, K=32 slots.
@@ -179,14 +262,50 @@ def phase_kernels() -> list:
         ("node_scalar", 1024, 801, 1, 16, torch.bool, 0, 801),
         ("b3", 3, 50, 7, 5, torch.int32, 0, 50),
         ("out_of_range", 64, 100, 32, 40, torch.float32, -5, 105),
+        # odd row lengths: bytes (1, 3), 4-byte words (7) and 16-byte chunks
+        # (225, 227) with shifts, words and chunks across rows
+        ("odd_1", 1024, 801, 1, 16, torch.int8, -1, 801),
+        ("odd_3", 1024, 801, 3, 16, torch.int8, -1, 801),
+        ("odd_225", 1024, 801, 225, 16, torch.int8, -1, 801),
+        ("odd_227", 1024, 801, 227, 16, torch.int8, -1, 801),
+        ("odd_227_b5", 5, 33, 227, 7, torch.int8, -3, 36),
+        ("odd_7", 1024, 801, 7, 16, torch.int8, -1, 801),
+        # a source base 1 to 3 bytes past alignment; int64 indices as the
+        # search's root and link reads pass them
+        ("misaligned_128", 256, 801, 128, 16, torch.int8, -1, 801, 1),
+        ("misaligned_225", 256, 801, 225, 16, torch.int8, -1, 801, 2),
+        ("misaligned_meta", 256, 801, 12, 16, torch.int8, -1, 801, 3),
+        ("root_child_i64", 1024, 225, 1, 16, torch.int32, 0, 225, 0, i64),
+        ("link_i64", 1024, 801 * 32, 1, 16, torch.int32, -1, 801 * 32, 0, i64),
     ]
-    rows = [_gather_case(*c, gen=gen) for c in cases]
-    for r in rows:
-        log("[kernel] " + json.dumps(r))
-    bad = [r["case"] for r in rows if not r["bit_equal"]]
+    rows = []
+    for c in cases:  # name, B, N, K, M, dtype, lo, hi[, offset[, idx dtype]]
+        offset = c[8] if len(c) > 8 else 0
+        extra = c[9] if len(c) > 9 else {}
+        rows.append(_gather_case(*c[:8], gen=gen, offset=offset, **extra))
+        log("[kernel] " + json.dumps(rows[-1]))
+    # gather_rows_many at the arenas the search reads at one index: a
+    # level's node rows (terminal flag, slot priors, child pointers, node
+    # stats) and a wave's leaf rows (board, meta, terminal value).
+    many = [_gather_many_case("level_rows", 1024, 801, 16,
+                              [(1, torch.bool), (32, torch.bfloat16),
+                               (32, torch.int32), (2, torch.float32)], gen),
+            _gather_many_case("leaf_rows", 1024, 801, 16,
+                              [(225, torch.int8), (12, torch.int32),
+                               (1, torch.float32)], gen),
+            _gather_many_case("eight_arenas", 7, 40, 9,
+                              [(k, dt) for k, dt in zip(
+                                  (1, 3, 5, 225, 2, 7, 16, 1),
+                                  (torch.bool, torch.int8, torch.bfloat16, torch.int8,
+                                   torch.float32, torch.int32, torch.int8, torch.float32))],
+                              gen)]
+    for r in many:
+        log("[kernel] gather_rows_many " + json.dumps(r))
+    bad = [r["case"] for r in rows + many if not r["bit_equal"]]
+    bad += [r["case"] for r in many if r["launches"] != 1]
     if bad:
         raise AssertionError(f"gather_rows differs from its plain version: {bad}")
-    return rows
+    return rows + many
 
 
 def _library_for(case):
@@ -394,6 +513,7 @@ def phase_main_path(env, eval_fn, label: str, sims: int, moves: int,
             raise AssertionError(f"move {move}: an illegal action was chosen")
         states = new_states
     launches = {"gather_rows": gather_rows.launches, "s8_mm": s8_mm.launches}
+    gather_per_move = gather_rows.launches / moves
     if launches["gather_rows"] <= 0:
         raise AssertionError("the main path launched no gather_rows kernel")
     expected = _s8_launches_expected(batches, s8_convs, production.INT8_CHUNK)
@@ -410,7 +530,8 @@ def phase_main_path(env, eval_fn, label: str, sims: int, moves: int,
         "inference": label, "B": B, "simulations": sims, "wave": W,
         "moves": moves, "move_s": times,
         "timed_moves_per_s": len(timed) * B / sum(timed),
-        "launches": launches, "s8_mm_launches_expected": expected,
+        "launches": launches, "gather_launches_per_move": gather_per_move,
+        "s8_mm_launches_expected": expected,
         "eval_calls": len(batches),
         "eval_ms_per_wave": eval_ms,
         "eval_share_est": eval_ms * (waves + 1) / 1e3 / (sum(timed) / len(timed)),
@@ -528,7 +649,7 @@ def main() -> int:
              "tools/profile_fused_shapes.py:46", main_res["launches"]["s8_mm"]),
             ("s8_mm_multi", "s8_mm", "probe_5x128x64",
              "tools/profile_fused_shapes.py:68", probe_launches["s8_mm_multi"]),
-            ("chained_dot", "s8_mm", "s8_3600x576x64",
+            ("chained_dot", "wgmma_mm", "s8_3600x576x64",
              "tools/profile_inkernel_dot.py:23", probe_launches["chained_dot"]),
             ("tiled_mm", "wgmma_mm", "s8_8192x2048x2048",
              "tools/profile_pallas_mm.py:30", probe_launches["tiled_mm"])):

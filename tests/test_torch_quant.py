@@ -71,8 +71,8 @@ def nets():
     calib = _obs(32, seed=11)
     jqp = jq.quantize(jfp, jq.calibrate(jfp, [jnp.asarray(calib)]))
     return dict(jmodel=jmodel, variables=variables, model=_port_model(variables),
-                jfp=jfp, fp=folded_from_jax(_numpy_tree(jfp)),
-                jqp=jqp, qp=quant_params_from_jax(_numpy_tree(jqp)),
+                jfp=jfp, fp=folded_from_jax(_numpy_tree(jfp), device="cpu"),
+                jqp=jqp, qp=quant_params_from_jax(_numpy_tree(jqp), device="cpu"),
                 calib=calib)
 
 

@@ -10,6 +10,7 @@ kernels are held against those on the card by ``chip_smoke.py`` and the
 import functools
 import importlib.util
 import pathlib
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -270,6 +271,150 @@ def test_kernel_accepts_mirrors_the_entry_points():
     assert not ops.kernel_accepts("tiled", 10, 64 * 65535 + 1, 16, s8)
     with pytest.raises(ValueError):
         ops.kernel_accepts("plain", 1, 1, 1, s8)
+
+
+# --------------------------------------------- the chained dot's wrapped form
+
+def _requant_np(acc, dtype):
+    if dtype == "int8":
+        return ((acc >> 8) + 128) % 256 - 128  # wraps like the cast to s8
+    return np.asarray(torch.from_numpy((acc * np.float32(0.001)).astype(np.float32))
+                      .to(torch.bfloat16).float())
+
+
+def _wrapped_chain(a, b, R, dtype):
+    """The chain as the kernel computes it: after the first product the
+    operand is only d's N columns, and tile(d, K / N) @ b is taken as
+    sum_j d @ b[jN : (j+1)N]."""
+    K, N = b.shape
+    acc_t = np.int64 if dtype == "int8" else np.float32
+    b = b.astype(acc_t)
+    acc = a.astype(acc_t) @ b
+    for _ in range(R):
+        d = _requant_np(acc, dtype).astype(acc_t)
+        acc = sum(d @ b[j * N:(j + 1) * N] for j in range(K // N))
+        if dtype == "int8":  # int32 sums wrap
+            acc = ((acc + 2**31) % 2**32 - 2**31)
+    return acc
+
+
+@pytest.mark.parametrize("dtype,M,K,N,R", [
+    ("int8", 40, 576, 64, 3), ("int8", 9, 128, 128, 2), ("int8", 5, 96, 32, 4),
+    ("int8", 7, 64, 64, 0), ("bfloat16", 12, 256, 128, 3),
+    ("bfloat16", 6, 128, 64, 2)])
+def test_chained_dot_plain_equals_the_wrapped_form(dtype, M, K, N, R):
+    rng = np.random.default_rng(9)
+    if dtype == "int8":
+        a, b = _s8(rng, (M, K)), _s8(rng, (K, N))
+        got = chained_dot_plain(torch.from_numpy(a), torch.from_numpy(b), R)
+        np.testing.assert_array_equal(got.numpy(), _wrapped_chain(a, b, R, dtype))
+        return
+    ta = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).bfloat16()
+    tb = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)).bfloat16()
+    got = chained_dot_plain(ta, tb, R).numpy()
+    want = _wrapped_chain(ta.float().numpy(), tb.float().numpy(), R, dtype)
+    # the same f32 terms summed in another order; a flipped bf16 rounding
+    # between the products is carried on (BF16_TOL of the probe script)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=probe.BF16_TOL["chained_dot"] * np.abs(want).max())
+
+
+def test_chained_dot_accepts_mirrors_the_entry_point():
+    """The shape rule of az_chained_smem (csrc/wgmma_mm.cu), pinned: what the
+    kernel takes and the shared memory it asks for."""
+    s8, bf = torch.int8, torch.bfloat16
+    smem = ops.chained_dot_smem
+    # s8 [576, 64]: b 5 panels x 128 B x 64 (40 KB) + band 5 x 8 KB + 1 KB
+    # alignment + the barrier
+    assert smem(64, 576, s8) == 1024 + 40960 + 40960 + 16
+    # bf16 [128, 128]: b as it lies, 128 rows x 128 B x 2 column blocks; the
+    # band 2 panels of 128 bytes
+    assert smem(128, 128, bf) == 1024 + 32768 + 16384 + 16
+    for N in (32, 64, 128):
+        assert smem(N, N, s8) is not None
+    assert smem(256, 256, s8) is None
+    assert smem(32, 64, bf) is None              # bf16 b is read 64 columns a block
+    assert smem(96, 192, s8) is None
+    assert smem(64, 96, s8) is None              # K % N
+    assert smem(64, 0, s8) is None
+    assert smem(128, 1152, s8) is not None       # 9 panels: the limit
+    assert smem(128, 1280, s8) is None
+    assert smem(128, 512, bf) is not None and smem(128, 640, bf) is None
+    assert smem(64, 576, torch.float32) is None
+
+
+_CHAIN_CASES = [c for c in probe.probe_cases(8) + probe.edge_cases()
+                if c.kernel == "chained_dot"]
+
+
+@pytest.mark.parametrize("case", _CHAIN_CASES, ids=[c.name for c in _CHAIN_CASES])
+def test_every_chained_dot_case_is_taken(case):
+    (M, K), N = case.a_shape, case.b_shape[1]
+    assert ops.chained_dot_smem(N, K, case.dtype)
+
+
+def test_chained_dot_edge_cases_cover_its_edges():
+    chains = [c for c in probe.edge_cases() if c.kernel == "chained_dot"]
+    for dt in (torch.int8, torch.bfloat16):
+        mine = [c for c in chains if c.dtype == dt]
+        assert any(c.R == 0 for c in mine) and any(c.a_shape[0] < 64 for c in mine)
+        assert any(c.a_shape[1] == c.b_shape[1] for c in mine)
+        assert any(c.a_shape[0] % 64 for c in mine)
+        assert any(c.a_shape[0] > 132 * 64 for c in mine)  # more bands than SMs
+        # the largest K whose b fits, for N = 128
+        assert any(ops.chained_dot_smem(128, c.a_shape[1] + 128, dt) is None
+                   for c in mine if c.b_shape[1] == 128)
+    assert {c.b_shape[1] for c in chains} == {32, 64, 128}
+
+
+def test_off_the_cpu_chained_dot_launches_its_kernel(monkeypatch):
+    calls = []
+    monkeypatch.setattr(ops, "_check_pair", lambda *args, **kw: None)
+    monkeypatch.setattr(ops, "_fns", SimpleNamespace(
+        wg=None, chained=lambda *a: calls.append(a) or 0))
+    monkeypatch.setattr(ops._build, "stream_of", lambda x: 0)
+
+    def refuse(*args):
+        raise AssertionError("a plain version was called")
+
+    monkeypatch.setattr(ops, "chained_dot_plain", refuse)
+    a = torch.empty((3600, 576), dtype=torch.int8, device="meta")
+    b = torch.empty((576, 64), dtype=torch.int8, device="meta")
+    before = chained_dot.launches
+    out = chained_dot(a, b, 8)
+    assert out.shape == (3600, 64) and out.dtype == torch.int32
+    assert chained_dot.launches == before + 1 and len(calls) == 1
+    assert calls[0][3:] == (3600, 64, 576, 576, 8, 1, 0)
+
+
+@pytest.mark.parametrize("N", [32, 64, 128])
+def test_s8_fragment_shuffles_rebuild_wgmma_a(N):
+    """requant_to_fragments of csrc/wgmma_mm.cu, s8, in numpy: from the
+    wgmma accumulator layout (lane g * 4 + t holds columns 8j + 2t, +1 of
+    rows g and g + 8) to the A fragments of the next step (a[u][2 half + h]
+    holds columns 32u + 16 half + 4t .. + 3 of row g + 8h), by each lane
+    packing the pairs of two column groups into one word and two shuffles
+    within the quad."""
+    rng = np.random.default_rng(10)
+    d = rng.integers(0, 256, (16, N), dtype=np.uint32)  # a warp's rows of d
+    lanes = np.arange(32)
+    g, t = lanes // 4, lanes % 4
+
+    def pair(j, h):  # the requantised pair (j, h) of every lane, 16 bits
+        return d[g + 8 * h, 8 * j + 2 * t] | (d[g + 8 * h, 8 * j + 2 * t + 1] << 8)
+
+    src = (lanes & ~3) | (2 * (t & 1))
+    sel = (t >> 1) * 16
+    for u in range(N // 32):
+        for half in range(2):
+            for h in range(2):
+                j0 = 4 * u + 2 * half
+                packed = pair(j0, h) | (pair(j0 + 1, h) << 16)
+                x, y = packed[src], packed[src + 1]  # __shfl_sync
+                a = ((x >> sel) & 0xFFFF) | (((y >> sel) & 0xFFFF) << 16)
+                cols = 32 * u + 16 * half + 4 * t
+                want = sum(d[g + 8 * h, cols + c] << (8 * c) for c in range(4))
+                np.testing.assert_array_equal(a, want)
 
 
 # ------------------------------------- plain twins of what the kernels build
