@@ -2,11 +2,15 @@
 // (sm_90a): wgmma from swizzled shared memory, TMA loads that complete on
 // mbarriers, a ring of stages, persistent blocks.
 //
-// Replaces three Pallas TPU probe kernels of the JAX package:
+// Replaces four Pallas TPU probe kernels of the JAX package:
 //
 //   az_s8_mm_resident  tools/profile_fused_shapes.py::pallas_mm
 //                      out = a @ b, s8 x s8 -> s32, a [M, K], b [K, N <= 128]
 //                      with all of `b` resident in shared memory
+//   az_s8_mm_multi     tools/profile_fused_shapes.py::pallas_mm_multi (:68)
+//                      out = sum_t a @ b[t], s8 -> s32, b [taps, K, N]: the
+//                      resident kernel with every tap's `b` resident, or
+//                      the tiled kernel with the taps laid end to end in K
 //   az_wgmma_tiled     tools/profile_pallas_mm.py::make_pallas_mm
 //                      out = a @ b, s8 -> s32 or bf16 -> f32, any size
 //                      (also takes s8_mm when `b` is too large to be resident)
@@ -31,6 +35,27 @@
 // registers (each quad of lanes writes one full 32-byte sector), the
 // producer is already filling the ring with the next tiles' loads.
 //
+// The taps product has the same shape of work: at the probe, [14400, 128] x
+// [5, 128, 64], the call moves 5.57 MB (a 1.84 MB, b 0.04 MB, out 3.69 MB),
+// 1.66 us at 3.35 TB/s against 0.60 us of tensor time, so it is bound by
+// bytes, and a must cross from memory once, not once a tap.  The resident
+// kernel takes a tap count: shared memory holds `taps` images of b[t] one
+// after another, and each [128 x 128-byte] box of `a` that arrives is run
+// against every tap's panel into the same accumulator, one ring stage and
+// one `empty` arrival for all taps.  With taps = 1 it is s8_mm's kernel.  At
+// the probe 14400 rows make 113 tiles for 132 SMs, one tile a block, so
+// nothing overlaps and what a block does before its first wgmma (launch,
+// building the 40 KB image of b) is on the critical path: b arrives in
+// 16-byte pieces of four rows, several pieces in flight a thread, where its
+// rows allow it.  That image is the largest part of the call at the probe;
+// forms of build_b_image that coalesced its loads, cut its index arithmetic,
+// spread it over more threads or issued each tap's wgmma as soon as the tap
+// was written all measured slower (PERF.md).  Where the taps' images exceed
+// the resident limit (or
+// N > 128) the tiled kernel runs over (tap, K panel) stages, with `a`'s K
+// coordinate restarting at each tap (re-read from L2) and b transposed into
+// scratch as [N, taps x Kp], each tap's K padded with zeros to Kp.
+//
 // The square probe shape [8192, 2048] x [2048, 2048] is bound by operations
 // (35 us s8, 69 us bf16 at the tensor cores' peak).  The tiled kernel is the
 // usual Hopper shape: 128 x 256 output tiles, K steps of 128 bytes, a
@@ -46,11 +71,12 @@
 // transpose bit).  For 8-bit types wgmma takes only K-major operands, so the
 // s8 `b` has to be transposed:
 //   * resident kernel: inside the block, once per block.  The consumer
-//     threads read 4 x 4 byte blocks of `b`, transpose them in registers
-//     with PRMT and write them K-major into the 128-byte-swizzled layout the
-//     descriptor names (N padded up to 32 / 64 / 128 there, K up to 32, with
-//     zeros; no padded copy of `b` is made by the caller).  36 KB x 132
-//     blocks out of L2 is nothing beside the 95 MB the call moves.
+//     threads read four rows of `b` (16 or 4 bytes of each), transpose 4 x 4
+//     byte blocks in registers with PRMT and write them K-major into the
+//     128-byte-swizzled layout the descriptor names (N padded up to 32 / 64
+//     / 128 there, K up to 32, with zeros; no padded copy of `b` is made by
+//     the caller).  36 KB x 132 blocks out of L2 is nothing beside the 95 MB
+//     the call moves.
 //   * tiled kernel: a small transposition kernel in this file writes `b` as
 //     [N, K] into scratch the caller allocates, and the product then loads it
 //     by TMA like `a`.  4 MB each way takes a few microseconds against a 35 us
@@ -434,6 +460,88 @@ __device__ __forceinline__ void load_bt4(const byte_t* __restrict__ b, int K,
   transpose4x4(r, w);
 }
 
+constexpr int BT_BATCH = 6;  // 16-byte pieces of four rows of s8 b in flight
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// Writes the K-major, 128-byte-swizzled image of s8 b [taps, K, N] (taps
+// row-major K x N matrices one after another) at `sm`, as the resident
+// product and the chained dot read it: for each tap, ceil(K / 128) panels of
+// [NP rows (n)][128 bytes of K], tap t's panel p at (t panels + p) NP 128
+// bytes (a multiple of 1024, so every panel is swizzle-aligned).  K is
+// covered up to the last 32-byte wgmma step and N up to NP, with zeros.
+// Threads `tid` of `nthreads` share the work.  Mode 2 reads four rows of 16
+// columns as four 16-byte loads, BT_BATCH such items in flight a thread,
+// and neighbouring threads take neighbouring groups of four rows, so a
+// warp's stores fill whole 128-byte rows of a panel, one to a bank; modes 1
+// and 0 read 4 x 4 byte blocks (load_bt4).
+template <int NP>
+__device__ __forceinline__ void build_b_image(byte_t* sm,
+                                              const byte_t* __restrict__ b,
+                                              int K, int N, int taps, int mode,
+                                              int tid, int nthreads) {
+  const int panels = (K + ROW_BYTES - 1) / ROW_BYTES;
+  const int k4s = (K + 31) / 32 * 8;  // groups of 4 rows up to the last step
+  // w[j]: K bytes k .. k + 3 of column n + j of tap t.
+  auto put = [&](int t, int k, int n, const uint32_t(&w)[4]) {
+    const int kk = k % ROW_BYTES;
+    byte_t* panel = sm + (t * panels + k / ROW_BYTES) * (NP * ROW_BYTES);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = n + j;
+      const int off =
+          row * ROW_BYTES + ((((kk >> 4) ^ (row & 7)) << 4) | (kk & 15));
+      *reinterpret_cast<uint32_t*>(panel + off) = w[j];
+    }
+  };
+  if (mode == 2) {
+    constexpr int N16 = NP / 16;
+    const int items = taps * k4s * N16;  // item: (tap, n16, k4), k4 fastest
+    for (int i0 = tid; i0 < items; i0 += nthreads * BT_BATCH) {
+      uint4 r[BT_BATCH][4];
+#pragma unroll
+      for (int u = 0; u < BT_BATCH; ++u) {
+        const int i = i0 + u * nthreads;
+        if (i >= items) continue;
+        const int k = 4 * (i % k4s), n = 16 * ((i / k4s) % N16);
+        const int t = i / (k4s * N16);
+        const byte_t* p = b + (static_cast<size_t>(t) * K + k) * N + n;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          r[u][q] = k + q < K && n < N
+                        ? __ldg(reinterpret_cast<const uint4*>(p + q * N))
+                        : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < BT_BATCH; ++u) {
+        const int i = i0 + u * nthreads;
+        if (i >= items) continue;
+        const int k = 4 * (i % k4s), n = 16 * ((i / k4s) % N16);
+        const int t = i / (k4s * N16);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const uint32_t rows[4] = {word_of(r[u][0], c), word_of(r[u][1], c),
+                                    word_of(r[u][2], c), word_of(r[u][3], c)};
+          uint32_t w[4];
+          transpose4x4(rows, w);
+          put(t, k, n + 4 * c, w);
+        }
+      }
+    }
+    return;
+  }
+  const int items = taps * k4s * (NP / 4);  // item: (tap, k4, n4), n4 fastest
+  for (int i = tid; i < items; i += nthreads) {
+    const int n = (i % (NP / 4)) * 4, k = (i / (NP / 4)) % k4s * 4;
+    const int t = i / ((NP / 4) * k4s);
+    uint32_t w[4];
+    load_bt4(b + static_cast<size_t>(t) * K * N, K, N, k, n, mode != 0, w);
+    put(t, k, n, w);
+  }
+}
+
 __device__ __forceinline__ void st2(int32_t* p, int32_t x, int32_t y) {
   *reinterpret_cast<int2*>(p) = make_int2(x, y);
 }
@@ -482,15 +590,33 @@ struct Ring {  // position in a ring of stages; the parity flips on each wrap
 
 // ------------------------------------------------- s8, `b` resident on chip
 
-// Shared memory (from a 1024-byte aligned base):
-//   bt    panels x [NP rows (n)][128 bytes of K], 128-byte swizzled
+// One committed group of STEPS wgmma m64nNPk32 steps along K (32 bytes a
+// step), both operands from shared memory.  The steps are unrolled: with a
+// loop of run-time length between the fence and the commit, ptxas fences
+// every wgmma (its note C7519), and the taps product ran 1.3 us slower at
+// the probe.  `first` overwrites acc.
+template <int NP, int STEPS>
+__device__ __forceinline__ void s8_mma_group(int32_t (&acc)[NP / 2],
+                                             uint64_t da, uint64_t db,
+                                             bool first) {
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < STEPS; ++ks)
+    S8Mma<NP>::run(acc, da + 2 * ks, db + 2 * ks, !first || ks != 0);
+  wgmma_commit();
+}
+
+// out = sum over taps of a @ b[t] (taps = 1: a @ b).  Shared memory (from a
+// 1024-byte aligned base):
+//   bt    taps x panels x [NP rows (n)][128 bytes of K], 128-byte swizzled
+//         (build_b_image)
 //   ring  R_STAGES x [128 rows of a][128 bytes of K], as TMA writes them
 //   bars  full[R_STAGES], empty[R_STAGES]
 template <int NP>
 __global__ void __launch_bounds__(THREADS, 1)
 s8_resident_kernel(const __grid_constant__ CUtensorMap map_a,
                    const byte_t* __restrict__ b, int32_t* __restrict__ out,
-                   int M, int N, int K, int b_vec, int out_pairs) {
+                   int M, int N, int K, int taps, int b_mode, int out_pairs) {
   extern __shared__ byte_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -499,7 +625,7 @@ s8_resident_kernel(const __grid_constant__ CUtensorMap map_a,
   const int panels = (K + ROW_BYTES - 1) / ROW_BYTES;
   const int panel_bytes = NP * ROW_BYTES;
   const uint32_t bt = base;
-  const uint32_t ring = bt + panels * panel_bytes;
+  const uint32_t ring = bt + taps * panels * panel_bytes;
   const uint32_t full = ring + R_STAGES * A_STAGE;
   const uint32_t empty = full + 8 * R_STAGES;
   const int tiles = (M + BM - 1) / BM;
@@ -531,29 +657,11 @@ s8_resident_kernel(const __grid_constant__ CUtensorMap map_a,
     return;
   }
 
-  // Consumers.  First bring b in, transposed to K-major and swizzled: item
-  // (k4, n4) is the 4 x 4 block at k = 4 k4, n = 4 n4.  K is covered up to
-  // the last 32-byte wgmma step, N up to NP, both with zeros.
-  {
-    const int ksteps = (K + 31) / 32;
-    const int items = ksteps * 8 * (NP / 4);
-    for (int i = threadIdx.x; i < items; i += 2 * WG_THREADS) {
-      const int n = (i % (NP / 4)) * 4, k = (i / (NP / 4)) * 4;
-      uint32_t w[4];
-      load_bt4(b, K, N, k, n, b_vec != 0, w);
-      const int kk = k % ROW_BYTES;
-      byte_t* panel = sm + (k / ROW_BYTES) * panel_bytes;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = n + j;
-        const int off =
-            row * ROW_BYTES + ((((kk >> 4) ^ (row & 7)) << 4) | (kk & 15));
-        *reinterpret_cast<uint32_t*>(panel + off) = w[j];
-      }
-    }
-    fence_proxy_async();
-    consumers_sync();
-  }
+  // Consumers.  First bring every tap's b in, transposed to K-major and
+  // swizzled, while the producer's first loads of `a` are in flight.
+  build_b_image<NP>(sm, b, K, N, taps, b_mode, threadIdx.x, 2 * WG_THREADS);
+  fence_proxy_async();
+  consumers_sync();
 
   const int lane = threadIdx.x % 32, warp = (threadIdx.x % WG_THREADS) / 32;
   const int last_steps = ((K - (panels - 1) * ROW_BYTES) + 31) / 32;
@@ -564,13 +672,20 @@ s8_resident_kernel(const __grid_constant__ CUtensorMap map_a,
       mbar_wait(full + 8 * r.stage, r.phase);
       const uint64_t da =
           make_desc(ring + r.stage * A_STAGE + wg * HALF_A, 16, 1024);
-      const uint64_t db = make_desc(bt + p * panel_bytes, 16, 1024);
       const int steps = p == panels - 1 ? last_steps : 4;
       fence_acc(acc);
-      wgmma_fence();
-      for (int ks = 0; ks < steps; ++ks)
-        S8Mma<NP>::run(acc, da + 2 * ks, db + 2 * ks, (p | ks) != 0);
-      wgmma_commit();
+      // This stage of `a` against panel p of every tap, a group a tap.
+      for (int t = 0; t < taps; ++t) {
+        const uint64_t db =
+            make_desc(bt + (t * panels + p) * panel_bytes, 16, 1024);
+        const bool first = (p | t) == 0;
+        switch (steps) {
+          case 4: s8_mma_group<NP, 4>(acc, da, db, first); break;
+          case 3: s8_mma_group<NP, 3>(acc, da, db, first); break;
+          case 2: s8_mma_group<NP, 2>(acc, da, db, first); break;
+          default: s8_mma_group<NP, 1>(acc, da, db, first);
+        }
+      }
       wgmma_wait<0>();
       fence_acc(acc);
       if (threadIdx.x % WG_THREADS == 0) mbar_arrive(empty + 8 * r.stage);
@@ -583,13 +698,16 @@ s8_resident_kernel(const __grid_constant__ CUtensorMap map_a,
 
 // ----------------------------------------------------------- tiled product
 
-// bt [N, ldbt] <- b [K, N] (s8), through a 64 (n) x 128 (k) shared tile:
-// reads run along N, writes along K, both in 4-byte words.
+// bt [N, ldbt] <- b [taps, K, N] (s8): tap t (blockIdx.z) goes to columns
+// [t kp, t kp + kp) of bt, zeros past K.  Through a 64 (n) x 128 (k) shared
+// tile: reads run along N, writes along K, both in 4-byte words.
 __global__ void __launch_bounds__(256)
 transpose_s8_kernel(const byte_t* __restrict__ b, byte_t* __restrict__ bt,
-                    int K, int N, int ldbt, int b_vec) {
+                    int K, int N, int ldbt, int kp, int b_vec) {
   __shared__ uint32_t tile[64][33];
   const int k0 = blockIdx.x * 128, n0 = blockIdx.y * 64;
+  b += static_cast<size_t>(blockIdx.z) * K * N;
+  bt += static_cast<size_t>(blockIdx.z) * kp;
   for (int i = threadIdx.x; i < 32 * 16; i += 256) {
     const int n4 = i % 16, k4 = i / 16;
     uint32_t w[4];
@@ -600,7 +718,7 @@ transpose_s8_kernel(const byte_t* __restrict__ b, byte_t* __restrict__ bt,
   __syncthreads();
   for (int i = threadIdx.x; i < 64 * 32; i += 256) {
     const int kw = i % 32, n = i / 32;
-    if (n0 + n < N && k0 + 4 * kw < ldbt)
+    if (n0 + n < N && k0 + 4 * kw < kp)
       *reinterpret_cast<uint32_t*>(bt + static_cast<size_t>(n0 + n) * ldbt + k0 +
                                    4 * kw) = tile[n][kw];
   }
@@ -610,22 +728,28 @@ template <int ES> struct Acc;  // ES: bytes per input element
 template <> struct Acc<1> { typedef int32_t type; };
 template <> struct Acc<2> { typedef float type; };
 
-// Shared memory (from a 1024-byte aligned base): T_STAGES x { a [128 rows]
-// [128 bytes of K];  b: s8 [256 rows (n)][128 bytes of K], bf16 four blocks
-// of [64 K rows][128 bytes = 64 columns] }, then full[], empty[].
+// s8: out = sum over taps of a @ b[t], with b[t] at columns [t kp, t kp + K)
+// of the transposed bt [N, taps kp] that map_b reads; the stages of a tile
+// run over (tap, K panel), and a's K coordinate restarts at each tap.  bf16:
+// taps = 1.  Shared memory (from a 1024-byte aligned base): T_STAGES x
+// { a [128 rows][128 bytes of K];  b: s8 [256 rows (n)][128 bytes of K],
+// bf16 four blocks of [64 K rows][128 bytes = 64 columns] }, then full[],
+// empty[].
 template <int ES>
 __global__ void __launch_bounds__(THREADS, 1)
 wgmma_tiled_kernel(const __grid_constant__ CUtensorMap map_a,
                    const __grid_constant__ CUtensorMap map_b,
                    typename Acc<ES>::type* __restrict__ out, int M, int N,
-                   int K, int tiles_n, int tiles, int out_pairs) {
+                   int K, int tiles_n, int tiles, int out_pairs, int taps,
+                   int kp) {
   typedef typename Acc<ES>::type acc_t;
   extern __shared__ byte_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t full = base + T_STAGES * T_STAGE;
   const uint32_t empty = full + 8 * T_STAGES;
   constexpr int BK = ROW_BYTES / ES;  // elements of K per stage
-  const int ksteps = (K + BK - 1) / BK;
+  const int tap_steps = (K + BK - 1) / BK;
+  const int ksteps = taps * tap_steps;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < T_STAGES; ++s) {
@@ -646,11 +770,12 @@ wgmma_tiled_kernel(const __grid_constant__ CUtensorMap map_a,
         for (int kt = 0; kt < ksteps; ++kt) {
           const uint32_t bar = full + 8 * r.stage;
           const uint32_t sa = base + r.stage * T_STAGE, sb = sa + A_STAGE;
+          const int tap = kt / tap_steps, k = (kt - tap * tap_steps) * BK;
           mbar_wait(empty + 8 * r.stage, r.phase ^ 1);
           mbar_expect_tx(bar, T_STAGE);
-          tma_load_2d(sa, &map_a, bar, kt * BK, m0);
+          tma_load_2d(sa, &map_a, bar, k, m0);
           if constexpr (ES == 1) {
-            tma_load_2d(sb, &map_b, bar, kt * BK, n0);  // bt [N, K]
+            tma_load_2d(sb, &map_b, bar, tap * kp + k, n0);  // bt [N, taps kp]
           } else {
 #pragma unroll
             for (int j = 0; j < TN / 64; ++j)  // b [K, N], 64 columns a box
@@ -752,7 +877,6 @@ wgmma_tiled_kernel(const __grid_constant__ CUtensorMap map_a,
 // (panels of the `a` band), one mbarrier.
 constexpr int CD_ROWS = 64;
 constexpr int CD_PANEL = CD_ROWS * ROW_BYTES;  // 8 KB
-constexpr int BT_BATCH = 6;  // 16-byte pieces of four rows of s8 b in flight
 
 struct ChainLayout {
   int panels, b_bytes, band_bytes, total;
@@ -774,10 +898,6 @@ template <int N> struct ChainMma<2, N> : Bf16Mma<N> {};
 template <int ES, int N> struct ChainMmaRS;
 template <int N> struct ChainMmaRS<1, N> : S8MmaRS<N> {};
 template <int N> struct ChainMmaRS<2, N> : Bf16MmaRS<N> {};
-
-__device__ __forceinline__ uint32_t word_of(const uint4& v, int c) {
-  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
-}
 
 // d = requant(acc) as the A fragments of the next step, set u covering K
 // bytes [32 u, 32 u + 32) of d's row (see S8MmaRS).  bf16: the accumulator's
@@ -860,44 +980,8 @@ chained_dot_kernel(const __grid_constant__ CUtensorMap map_a,
     }
   }
   if constexpr (ES == 1) {
-    // Item (k4, n16): rows 4 k4 .. 4 k4 + 3 of b, columns 16 n16 .. + 15, in
-    // four 16-byte loads; neighbouring lanes take neighbouring k4, so a
-    // warp's stores fill whole 128-byte rows of a panel, one to a bank.
-    const int K4 = K / 4, items = K4 * (N / 16);
-    for (int i0 = tid; i0 < items; i0 += WG_THREADS * BT_BATCH) {
-      uint4 r[BT_BATCH][4];
-#pragma unroll
-      for (int u = 0; u < BT_BATCH; ++u) {
-        const int i = i0 + u * WG_THREADS;
-        if (i >= items) continue;
-        const byte_t* p =
-            b + static_cast<size_t>(4 * (i % K4)) * N + 16 * (i / K4);
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          r[u][q] = __ldg(reinterpret_cast<const uint4*>(p + q * N));
-      }
-#pragma unroll
-      for (int u = 0; u < BT_BATCH; ++u) {
-        const int i = i0 + u * WG_THREADS;
-        if (i >= items) continue;
-        const int k = 4 * (i % K4), kk = k % ROW_BYTES;
-        byte_t* panel = sm + (k / ROW_BYTES) * (N * ROW_BYTES);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const uint32_t rows[4] = {word_of(r[u][0], c), word_of(r[u][1], c),
-                                    word_of(r[u][2], c), word_of(r[u][3], c)};
-          uint32_t w[4];
-          transpose4x4(rows, w);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int row = 16 * (i / K4) + 4 * c + j;
-            const int off =
-                row * ROW_BYTES + ((((kk >> 4) ^ (row & 7)) << 4) | (kk & 15));
-            *reinterpret_cast<uint32_t*>(panel + off) = w[j];
-          }
-        }
-      }
-    }
+    // b is 16-byte aligned, N a multiple of 16 and K of N (so of 32).
+    build_b_image<N>(sm, b, K, N, 1, 2, tid, WG_THREADS);
     fence_proxy_async();
   }
   __syncthreads();
@@ -1016,46 +1100,98 @@ bool words_ok(const void* b, int N) {
   return N % 4 == 0 && reinterpret_cast<uintptr_t>(b) % 4 == 0;
 }
 
+// How build_b_image reads b's rows: 2 in 16-byte pieces (N % 16 == 0 and a
+// 16-byte aligned base), 1 in 4-byte words, 0 byte by byte.
+int b_read_mode(const void* b, int N) {
+  if (N % 16 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0) return 2;
+  return words_ok(b, N) ? 1 : 0;
+}
+
+// Shared memory the resident kernel's image of one K x N b takes:
+// ceil(K / 128) panels of NP x 128 bytes, NP = 32, 64 or 128 >= N.
+long long resident_b_bytes(int N, int K) {
+  const int np = N <= 32 ? 32 : N <= 64 ? 64 : 128;
+  return static_cast<long long>((K + ROW_BYTES - 1) / ROW_BYTES) * ROW_BYTES * np;
+}
+
+// K columns a tap of the tiled kernel's transposed b takes: rounded up to 16
+// bytes (TMA's pitch) for one tap, to 128 (a stage) for several, so that
+// every tap starts a stage.
+int tap_pitch(int taps, int K) {
+  return taps == 1 ? (K + 15) / 16 * 16 : (K + 127) / 128 * 128;
+}
+
+// 1 where the taps product keeps every tap's b resident, 0 where it takes
+// the tiled kernel, -1 where the arguments are no shape.
+int multi_route(int taps, int N, int K) {
+  if (taps <= 0 || N <= 0 || K <= 0) return -1;
+  return N <= 128 && resident_b_bytes(N, K) <= RESIDENT_B_MAX / taps ? 1 : 0;
+}
+
 template <int NP>
 cudaError_t launch_resident(const CUtensorMap& map_a, const byte_t* b,
-                            int32_t* out, int M, int N, int K, size_t smem,
-                            cudaStream_t stream) {
+                            int32_t* out, int M, int N, int K, int taps,
+                            size_t smem, cudaStream_t stream) {
   static const cudaError_t allowed = allow_smem(s8_resident_kernel<NP>);
   if (allowed != cudaSuccess) return allowed;
   const int tiles = (M + BM - 1) / BM;
   const int grid = tiles < sm_count() ? tiles : sm_count();
   s8_resident_kernel<NP><<<grid, THREADS, smem, stream>>>(
-      map_a, b, out, M, N, K, words_ok(b, N), pairs_ok(out, N));
+      map_a, b, out, M, N, K, taps, b_read_mode(b, N), pairs_ok(out, N));
   return cudaGetLastError();
 }
 
+// sum over taps of a @ b[t], b [taps, K, N] dense, with every tap's b
+// resident; taps = 1 is s8_mm's resident route.
+cudaError_t resident(const void* a, const void* b, void* out, int M, int N,
+                     int K, int lda, int taps, cudaStream_t stream) {
+  if (multi_route(taps, N, K) != 1 || lda < K || !tma_ok(a, lda) ||
+      sm_count() <= 0)
+    return cudaErrorInvalidValue;
+  const size_t smem = R_SMEM_FIXED + taps * resident_b_bytes(N, K);
+  CUtensorMap map_a;
+  cudaError_t err = make_map(&map_a, 1, a, K, M, lda, ROW_BYTES, BM);
+  if (err != cudaSuccess) return err;
+  const byte_t* bp = static_cast<const byte_t*>(b);
+  int32_t* op = static_cast<int32_t*>(out);
+  if (N <= 32) return launch_resident<32>(map_a, bp, op, M, N, K, taps, smem, stream);
+  if (N <= 64) return launch_resident<64>(map_a, bp, op, M, N, K, taps, smem, stream);
+  return launch_resident<128>(map_a, bp, op, M, N, K, taps, smem, stream);
+}
+
+// s8: sum over taps of a @ b[t], b [taps, K, N] dense (ldb == N), through bt
+// scratch [N, taps tap_pitch(taps, K)]; bf16: a @ b, taps = 1.
 template <int ES>
 cudaError_t launch_tiled(const void* a, const void* b, void* bt, void* out,
-                         int M, int N, int K, int lda, int ldb,
+                         int M, int N, int K, int lda, int ldb, int taps,
                          cudaStream_t stream) {
   typedef typename Acc<ES>::type acc_t;
   constexpr int BK = ROW_BYTES / ES;
-  if (!tma_ok(a, static_cast<long long>(lda) * ES) || lda < K)
+  if (!tma_ok(a, static_cast<long long>(lda) * ES) || lda < K || taps <= 0)
     return cudaErrorInvalidValue;
   CUtensorMap map_a, map_b;
   cudaError_t err = make_map(&map_a, ES, a, K, M,
                              static_cast<long long>(lda) * ES, BK, BM);
   if (err != cudaSuccess) return err;
+  int kp = 0;
   if constexpr (ES == 1) {
-    // b [K, N] dense -> bt [N, ldbt], then loaded like `a`.
-    const int ldbt = (K + 15) / 16 * 16;
-    if (bt == nullptr || !tma_ok(bt, ldbt) || ldb != N)
+    // b [taps, K, N] dense -> bt [N, taps kp], then loaded like `a`.  The
+    // map ends at the last tap's K: past it the TMA unit reads zeros.
+    kp = tap_pitch(taps, K);
+    const long long ldbt = static_cast<long long>(taps) * kp;
+    if (bt == nullptr || ldbt > 0x7fffffff || !tma_ok(bt, ldbt) || ldb != N)
       return cudaErrorInvalidValue;
-    const dim3 tgrid((K + 127) / 128, (N + 63) / 64);
-    if (tgrid.y > 65535) return cudaErrorInvalidValue;
+    const dim3 tgrid((kp + 127) / 128, (N + 63) / 64, taps);
+    if (tgrid.y > 65535 || tgrid.z > 65535) return cudaErrorInvalidValue;
     transpose_s8_kernel<<<tgrid, 256, 0, stream>>>(
-        static_cast<const byte_t*>(b), static_cast<byte_t*>(bt), K, N, ldbt,
-        words_ok(b, N));
+        static_cast<const byte_t*>(b), static_cast<byte_t*>(bt), K, N,
+        static_cast<int>(ldbt), kp, words_ok(b, N));
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    err = make_map(&map_b, ES, bt, K, N, ldbt, BK, TN);
+    err = make_map(&map_b, ES, bt, static_cast<int>(ldbt - kp) + K, N, ldbt,
+                   BK, TN);
   } else {
-    if (!tma_ok(b, static_cast<long long>(ldb) * ES) || ldb < N)
+    if (taps != 1 || !tma_ok(b, static_cast<long long>(ldb) * ES) || ldb < N)
       return cudaErrorInvalidValue;
     err = make_map(&map_b, ES, b, N, K, static_cast<long long>(ldb) * ES, 64,
                    BK);
@@ -1069,7 +1205,7 @@ cudaError_t launch_tiled(const void* a, const void* b, void* bt, void* out,
   const int grid = tiles < sm_count() ? static_cast<int>(tiles) : sm_count();
   wgmma_tiled_kernel<ES><<<grid, THREADS, T_SMEM, stream>>>(
       map_a, map_b, static_cast<acc_t*>(out), M, N, K, tiles_n,
-      static_cast<int>(tiles), pairs_ok(out, N));
+      static_cast<int>(tiles), pairs_ok(out, N), taps, kp);
   return cudaGetLastError();
 }
 
@@ -1097,7 +1233,8 @@ extern "C" {
 // of 16 bytes.  `out` [M, N] is dense.
 
 // The largest K x N the resident kernel takes, as bytes of shared memory for
-// b: ceil(K / 128) * 128 * NP with NP = 32, 64 or 128 >= N.
+// b: ceil(K / 128) * 128 * NP with NP = 32, 64 or 128 >= N (for all taps
+// together in the taps product).
 int az_resident_b_max() { return RESIDENT_B_MAX; }
 
 // Dynamic shared memory of one block: the tiled kernel's, and the resident
@@ -1109,21 +1246,7 @@ int az_resident_smem_fixed() { return R_SMEM_FIXED; }
 int az_s8_mm_resident(const void* a, const void* b, void* out, int M, int N,
                       int K, int lda, void* stream) {
   if (M <= 0 || N <= 0) return cudaSuccess;
-  if (K <= 0 || N > 128 || lda < K || !tma_ok(a, lda) || sm_count() <= 0)
-    return cudaErrorInvalidValue;
-  const int np = N <= 32 ? 32 : N <= 64 ? 64 : 128;
-  const int b_bytes = (K + ROW_BYTES - 1) / ROW_BYTES * ROW_BYTES * np;
-  if (b_bytes > RESIDENT_B_MAX) return cudaErrorInvalidValue;
-  const size_t smem = R_SMEM_FIXED + b_bytes;
-  CUtensorMap map_a;
-  cudaError_t err = make_map(&map_a, 1, a, K, M, lda, ROW_BYTES, BM);
-  if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const byte_t* bp = static_cast<const byte_t*>(b);
-  int32_t* op = static_cast<int32_t*>(out);
-  if (np == 32) return launch_resident<32>(map_a, bp, op, M, N, K, smem, s);
-  if (np == 64) return launch_resident<64>(map_a, bp, op, M, N, K, smem, s);
-  return launch_resident<128>(map_a, bp, op, M, N, K, smem, s);
+  return resident(a, b, out, M, N, K, lda, 1, static_cast<cudaStream_t>(stream));
 }
 
 // elem_size 1: s8 -> s32, b [K, N] dense (ldb == N) and `bt` scratch of
@@ -1134,8 +1257,26 @@ int az_wgmma_tiled(const void* a, const void* b, void* bt, void* out, int M,
   if (M <= 0 || N <= 0) return cudaSuccess;
   if (K <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (elem_size == 1) return launch_tiled<1>(a, b, bt, out, M, N, K, lda, ldb, s);
-  if (elem_size == 2) return launch_tiled<2>(a, b, bt, out, M, N, K, lda, ldb, s);
+  if (elem_size == 1) return launch_tiled<1>(a, b, bt, out, M, N, K, lda, ldb, 1, s);
+  if (elem_size == 2) return launch_tiled<2>(a, b, bt, out, M, N, K, lda, ldb, 1, s);
+  return cudaErrorInvalidValue;
+}
+
+// The route of az_s8_mm_multi: 1 resident (N <= 128 and every tap's b
+// within RESIDENT_B_MAX together), 0 tiled, -1 no shape.
+int az_s8_mm_multi_route(int taps, int N, int K) { return multi_route(taps, N, K); }
+
+// out s32 [M, N] = sum over taps of a [M, K] @ b[t], a and b s8, b [taps, K,
+// N] dense (any alignment).  The tiled route needs `bt` scratch of N x
+// (taps * Kp) bytes, 16-byte aligned, Kp = K rounded up to 16 bytes for one
+// tap and to 128 for several; the resident route reads no scratch.
+int az_s8_mm_multi(const void* a, const void* b, void* bt, void* out, int M,
+                   int N, int K, int lda, int taps, void* stream) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int route = multi_route(taps, N, K);
+  if (route == 1) return resident(a, b, out, M, N, K, lda, taps, s);
+  if (route == 0) return launch_tiled<1>(a, b, bt, out, M, N, K, lda, N, taps, s);
   return cudaErrorInvalidValue;
 }
 

@@ -15,8 +15,8 @@ raises; on a CPU tensor it takes the plain version beside it (``*_plain``).
 ``<wrapper>.launches`` counts calls that launched a kernel.  Any M, N and K
 are taken.
 
-``s8_mm``, ``tiled_mm`` and ``chained_dot`` run the wgmma / TMA kernels of
-``csrc/wgmma_mm.cu``.  ``s8_mm`` takes the kernel that keeps all of ``b``
+Every wrapper runs the wgmma / TMA kernels of ``csrc/wgmma_mm.cu``.
+``s8_mm`` takes the kernel that keeps all of ``b``
 in shared memory where ``b`` fits (``s8_mm_route``: N <= 128 and the padded
 ``b`` within ``RESIDENT_B_MAX`` bytes) and the tiled kernel otherwise;
 ``tiled_mm`` always takes the tiled kernel, which for s8 first transposes
@@ -26,8 +26,11 @@ when the TMA unit cannot read it as it lies (``_rows16``: a base or a row
 pitch that is no multiple of 16 bytes, such as K = 99 packed densely).
 ``chained_dot`` keeps all of ``b`` in one block's shared memory and a band
 of 64 rows of ``a`` in its registers; ``chained_dot_smem`` is the rule for
-the shapes it takes.  ``s8_mm_multi`` runs the ``mma.sync`` kernel of
-``csrc/s8_mm.cu``, which wants K and N zero-padded to multiples of 16.
+the shapes it takes.  ``s8_mm_multi`` runs the same two product kernels
+with a tap count (``s8_mm_multi_route``): the resident one where every
+tap's ``b`` fits one block's shared memory together, each box of ``a`` run
+against all taps as it arrives, else the tiled one over (tap, K panel)
+stages, its scratch holding the taps' transposed ``b`` side by side.
 
 The plain versions are exact for s8: products of values in [-128, 127]
 summed in float32 stay integers below 2**24 while ``K * 128**2 <= 2**24``
@@ -41,11 +44,9 @@ import ctypes
 from types import SimpleNamespace
 
 import torch
-import torch.nn.functional as F
 
 from alphazero_tpu_torch.ops import _build
 
-_ALIGN = 16  # elements: the mma.sync kernels want K and N padded to this
 _F32_EXACT_K = (1 << 24) // (128 * 128)  # 1024
 RESIDENT_B_MAX = 96 * 1024  # bytes; RESIDENT_B_MAX of csrc/wgmma_mm.cu
 _SMEM_MAX = 232448  # bytes of shared memory one block may use on sm_90
@@ -109,20 +110,42 @@ def s8_mm_route(N: int, K: int) -> str:
     return "tiled"
 
 
-def kernel_accepts(route: str, M: int, N: int, K: int, dtype: torch.dtype) -> bool:
+def s8_mm_multi_route(taps: int, N: int, K: int) -> str:
+    """The kernel ``s8_mm_multi`` takes for ``[M, K] x [taps, K, N]`` on the
+    card (``az_s8_mm_multi_route`` of ``csrc/wgmma_mm.cu``), a pure function
+    of the shape: ``"resident"`` where the images of all ``taps`` matrices
+    fit one block's shared memory together, else ``"tiled"``.  One tap is
+    ``s8_mm_route``."""
+    if N <= 128 and taps * resident_b_bytes(N, K) <= RESIDENT_B_MAX:
+        return "resident"
+    return "tiled"
+
+
+def tap_pitch(taps: int, K: int) -> int:
+    """Columns a tap takes in the tiled route's transposed ``b``: K rounded
+    up to 16 bytes (the TMA unit's pitch) for one tap, and to 128 (one
+    stage) for several, so that each tap starts a stage."""
+    return -(-K // 16) * 16 if taps == 1 else -(-K // 128) * 128
+
+
+def kernel_accepts(route: str, M: int, N: int, K: int, dtype: torch.dtype,
+                   taps: int = 1) -> bool:
     """Whether the kernel behind ``route`` takes the shape (the checks its C
-    entry point makes, after ``_rows16`` has seen to alignment)."""
+    entry point makes, after ``_rows16`` has seen to alignment); ``taps``
+    matrices of ``b`` summed over (s8)."""
     if min(M, N) <= 0:
         return True  # nothing to compute, nothing is launched
-    if K <= 0:
+    if K <= 0 or taps < 1 or (taps > 1 and dtype != torch.int8):
         return False
     if route == "resident":
         return (dtype == torch.int8 and N <= 128
-                and resident_b_bytes(N, K) <= RESIDENT_B_MAX)
+                and taps * resident_b_bytes(N, K) <= RESIDENT_B_MAX)
     if route == "tiled":
-        # the s8 transposition's grid spans N in blocks of 64
+        # the s8 transposition's grid spans N in blocks of 64 and the taps
+        # in its third dimension; its output's rows fit an int
         return (dtype == torch.bfloat16
-                or (dtype == torch.int8 and -(-N // 64) <= 65535))
+                or (dtype == torch.int8 and -(-N // 64) <= 65535
+                    and taps <= 65535 and taps * tap_pitch(taps, K) < 2**31))
     raise ValueError(f"unknown route {route!r}")
 
 
@@ -170,13 +193,23 @@ def pack_b_resident_plain(b: torch.Tensor) -> torch.Tensor:
     return img
 
 
+def pack_b_multi_plain(b: torch.Tensor) -> torch.Tensor:
+    """The image the resident kernel builds of ``b [taps, K, N]``: each
+    tap's ``pack_b_resident_plain`` after the one before, ``[taps * panels,
+    padded_n * 128]`` bytes (every panel starts on a 1024-byte boundary)."""
+    return torch.cat([pack_b_resident_plain(bt) for bt in b])
+
+
 def transpose_b_plain(b: torch.Tensor) -> torch.Tensor:
-    """What the tiled kernel's transposition pass writes: ``[N, K up to a
-    multiple of 16]``, zeros past K."""
-    K, N = b.shape
-    out = torch.zeros((N, -(-K // 16) * 16), dtype=b.dtype, device=b.device)
-    out[:, :K] = b.t()
-    return out
+    """What the tiled kernel's transposition pass writes of ``b [K, N]`` or
+    ``[taps, K, N]``: ``[N, taps * tap_pitch(taps, K)]``, tap t's ``b[t]``
+    transposed at columns ``t * tap_pitch`` onwards, zeros past K."""
+    bs = b[None] if b.dim() == 2 else b
+    taps, K, N = bs.shape
+    kp = tap_pitch(taps, K)
+    out = torch.zeros((N, taps, kp), dtype=b.dtype, device=b.device)
+    out[:, :, :K] = bs.permute(2, 0, 1)
+    return out.reshape(N, taps * kp)
 
 
 # ------------------------------------------------------------------ checking
@@ -215,15 +248,6 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x.clone() if x.data_ptr() % 16 else x
 
 
-def _pad_to(x: torch.Tensor, dim: int, multiple: int) -> torch.Tensor:
-    """``x`` zero-padded along ``dim`` (-1 or -2) to a multiple, contiguous
-    and 16-byte aligned."""
-    extra = -x.shape[dim] % multiple
-    if extra:
-        x = F.pad(x, (0, extra) if dim == -1 else (0, 0, 0, extra))
-    return _aligned(x)
-
-
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.int32 if dtype == torch.int8 else torch.float32
 
@@ -232,11 +256,10 @@ _fns = None  # the C entry points, bound at the first launch
 
 
 def _bind() -> SimpleNamespace:
-    """Build and load both sources and declare every entry point, once."""
+    """Build and load the source and declare every entry point, once."""
     global _fns
     if _fns is None:
-        _build.build(["wgmma_mm", "s8_mm"])
-        wg, mma = _build.load("wgmma_mm"), _build.load("s8_mm")
+        wg = _build.load("wgmma_mm")
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn, args in ((wg.az_s8_mm_resident, [p, p, p, i, i, i, i, p]),
                          (wg.az_wgmma_tiled, [p, p, p, p, i, i, i, i, i, i, p]),
@@ -244,26 +267,27 @@ def _bind() -> SimpleNamespace:
                          (wg.az_resident_smem_fixed, []),
                          (wg.az_chained_dot, [p, p, p, i, i, i, i, i, i, p]),
                          (wg.az_chained_smem, [i, i, i]),
-                         (mma.az_s8_mm_multi, [p, p, p, i, i, i, i, p])):
+                         (wg.az_s8_mm_multi, [p, p, p, p, i, i, i, i, i, p]),
+                         (wg.az_s8_mm_multi_route, [i, i, i])):
             fn.restype = ctypes.c_int
             fn.argtypes = args
         if wg.az_resident_b_max() != RESIDENT_B_MAX:
             raise RuntimeError("RESIDENT_B_MAX differs between ops/s8_mm.py "
                                "and csrc/wgmma_mm.cu")
         _fns = SimpleNamespace(
-            wg=wg, mma=mma, resident=wg.az_s8_mm_resident,
-            tiled=wg.az_wgmma_tiled, multi=mma.az_s8_mm_multi,
-            chained=wg.az_chained_dot)
+            wg=wg, resident=wg.az_s8_mm_resident, tiled=wg.az_wgmma_tiled,
+            multi=wg.az_s8_mm_multi, chained=wg.az_chained_dot)
     return _fns
 
 
-def dynamic_smem_bytes(route: str, N: int = 0, K: int = 0) -> int:
+def dynamic_smem_bytes(route: str, N: int = 0, K: int = 0, taps: int = 1) -> int:
     """Dynamic shared memory one block of the kernel behind ``route`` asks
-    for (the resident kernel's depends on ``b [K, N]``); builds the source."""
+    for (the resident kernel's depends on ``taps`` matrices ``b [K, N]``);
+    builds the source."""
     fns = _fns or _bind()
     if route == "tiled":
         return fns.wg.az_tiled_smem()
-    return fns.wg.az_resident_smem_fixed() + resident_b_bytes(N, K)
+    return fns.wg.az_resident_smem_fixed() + taps * resident_b_bytes(N, K)
 
 
 def _rows16(x: torch.Tensor) -> torch.Tensor:
@@ -328,21 +352,31 @@ def _launch_wgmma_tiled(wrapper, a: torch.Tensor, b: torch.Tensor) -> torch.Tens
     return out
 
 
-def _launch_multi(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``s8_mm_multi`` through the row-tiled ``mma.sync`` kernel: pad K and N
-    to multiples of 16, launch, unpad.  ``b`` is [taps, K, N]."""
-    M, N = a.shape[0], b.shape[-1]
-    a_p = _pad_to(a, -1, _ALIGN)
-    b_p = _pad_to(_pad_to(b, -2, _ALIGN), -1, _ALIGN)
-    Kp, Np = a_p.shape[1], b_p.shape[-1]
-    out = torch.empty((M, Np), dtype=torch.int32, device=a.device)
+def _launch_multi(a: torch.Tensor, b: torch.Tensor, route: str) -> torch.Tensor:
+    """``s8_mm_multi`` for ``b [taps, K, N]`` through ``az_s8_mm_multi``,
+    which takes ``route`` (``s8_mm_multi_route``); the tiled route's scratch
+    for the transposed taps is allocated here."""
+    M, K = a.shape
+    taps, _, N = b.shape
+    out = torch.empty((M, N), dtype=torch.int32, device=a.device)
+    if M == 0 or N == 0:
+        return out
     fns = _fns or _bind()
-    code = fns.multi(a_p.data_ptr(), b_p.data_ptr(), out.data_ptr(), M, Np, Kp,
-                     b.shape[0], _build.stream_of(a))
+    a = _rows16(a)
+    if not b.is_contiguous():
+        b = b.contiguous()
+    scratch = None
+    if route == "tiled":
+        scratch = torch.empty((N, taps * tap_pitch(taps, K)), dtype=torch.int8,
+                              device=a.device)
+    code = fns.multi(a.data_ptr(), b.data_ptr(),
+                     None if scratch is None else scratch.data_ptr(),
+                     out.data_ptr(), M, N, K, a.stride(0), taps,
+                     _build.stream_of(a))
     if code:
-        _build.check(fns.mma, code, "s8_mm_multi")
+        _build.check(fns.wg, code, "s8_mm_multi")
     s8_mm_multi.launches += 1
-    return out if Np == N else out[:, :N].contiguous()
+    return out
 
 
 # ------------------------------------------------------------------ wrappers
@@ -366,7 +400,8 @@ def s8_mm_multi(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          f"{tuple(b.shape)}")
     if a.device.type == "cpu":
         return s8_mm_multi_plain(a, b)
-    return _launch_multi(a, b)
+    taps, K, N = b.shape
+    return _launch_multi(a, b, s8_mm_multi_route(taps, N, K))
 
 
 def tiled_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -12,10 +12,16 @@ CUDA graph, device time alone), the achieved TOP/s, the plain version's time
 and the roofline bound (operations at the tensor cores' peak against bytes
 at the memory's rate).  Before the timed cases, ``edge_cases()`` are checked
 without timing: ragged M, N and K on each side of every tile edge, several
-rounds of the persistent grid, both routes of ``s8_mm``, -128 among the
-values, inputs that are strided, misaligned or pitched.
+rounds of the persistent grid, both routes of ``s8_mm`` and
+``s8_mm_multi``, -128 among the values, inputs that are strided, misaligned
+or pitched.  After them, ``multi_prologue_cases()`` time ``s8_mm_multi`` on
+one tile of rows, where the launch and the image of ``b`` are all there is.
 
     python -m alphazero_tpu_torch.scripts.profile_s8_dots [--reps 20] [--chain 64] [--only chained_dot]
+
+To time another checkout's kernels with these cases (an earlier commit
+unpacked with ``git archive``), run this file by its path with that
+checkout first on ``PYTHONPATH``.
 
 The package calls no library product of the same function, so
 ``library_ms`` is null here; ``chip_smoke.py`` passes its yardstick calls
@@ -64,7 +70,10 @@ def probe_cases(chain: int):
     M = 14400  # 64 boards x 15 x 15
     cases = [Case("s8_mm", f"probe_{K}x{N}", s8, (M, K), (K, N))
              for K, N in ((128, 64), (128, 128), (576, 64), (640, 128))]
-    cases.append(Case("s8_mm_multi", "probe_5x128x64", s8, (M, 128), (5, 128, 64)))
+    # the probe's taps, the executor's chunk of 512 boards, and the tiled route
+    cases += [Case("s8_mm_multi", "probe_5x128x64", s8, (M, 128), (5, 128, 64)),
+              Case("s8_mm_multi", "chunk_5x128x64", s8, (512 * 225, 128), (5, 128, 64)),
+              Case("s8_mm_multi", "tiled_5x576x128", s8, (M, 576), (5, 576, 128))]
     cases += [Case("chained_dot", f"s8_{m}x{K}x{N}", s8, (m, K), (K, N), chain)
               for m, K, N in ((3600, 128, 64), (3600, 128, 128), (3600, 256, 128),
                               (1800, 640, 128), (3600, 640, 64), (7200, 128, 64),
@@ -89,12 +98,20 @@ def trunk_cases(boards: int = 512, cells: int = 225):
             Case("s8_mm", "head_1x1", torch.int8, (M, 64), (64, 32))]
 
 
+def multi_prologue_cases():
+    """``s8_mm_multi`` on one tile of 128 rows, 5 taps and 1: the launch,
+    the image of ``b`` and one tile's product, against the probe case."""
+    s8 = torch.int8
+    return [Case("s8_mm_multi", "prologue_5x128x64", s8, (128, 128), (5, 128, 64)),
+            Case("s8_mm_multi", "prologue_1x128x64", s8, (128, 128), (1, 128, 64))]
+
+
 def edge_cases():
     """Shapes and layouts on each side of every edge of the wgmma kernels
     (row tiles of 128, column tiles of 32 / 64 / 128 / 256, K steps of 32 and
-    128 bytes, the resident limit of ``s8_mm``; the chained dot's bands of 64
-    rows, its N, K = N, R = 0, its shared-memory limit, both dtypes),
-    checked only."""
+    128 bytes, the resident limit of ``s8_mm`` and of ``s8_mm_multi``'s taps
+    together; the chained dot's bands of 64 rows, its N, K = N, R = 0, its
+    shared-memory limit, both dtypes), checked only."""
     s8, bf = torch.int8, torch.bfloat16
     ragged = [(1, 1, 1), (37, 99, 21), (130, 577, 65), (129, 64, 513),
               (300, 200, 8), (257, 130, 256), (64, 256, 128)]
@@ -144,7 +161,38 @@ def edge_cases():
         Case("chained_dot", "edge_bf16_misaligned", bf, (300, 128), (128, 64), 2,
              layout="misaligned"),
     ]
+    # s8_mm_multi (M, K, N, taps): ragged, the tiled route (N > 128), each
+    # side of the resident limit (6 x 16 KB = 96 KB), over two rounds of the
+    # persistent grid, one tap (also held equal to s8_mm), -128, layouts
+    multi = [(1, 1, 1, 1), (37, 99, 21, 3), (130, 577, 65, 2), (300, 200, 8, 9),
+             (129, 64, 513, 5), (257, 130, 256, 2), (300, 128, 128, 6),
+             (300, 128, 128, 7), (132 * 128 * 2 + 77, 128, 64, 5),
+             (300, 576, 64, 1), (257, 130, 256, 1), (64, 3072, 32, 1),
+             (200, 1024, 32, 3), (100, 256, 48, 4)]
+    cases += [Case("s8_mm_multi", f"edge_{M}x{K}x{N}_t{T}", s8, (M, K), (T, K, N))
+              for M, K, N, T in multi]
+    cases += [
+        Case("s8_mm_multi", "edge_minus128", s8, (1000, 128), (5, 128, 64), lowest=-128),
+        Case("s8_mm_multi", "edge_strided", s8, (500, 128), (5, 128, 64), layout="strided"),
+        Case("s8_mm_multi", "edge_misaligned", s8, (500, 99), (3, 99, 64),
+             layout="misaligned"),
+        Case("s8_mm_multi", "edge_pitched", s8, (5000, 99), (5, 99, 64), layout="pitched"),
+        Case("s8_mm_multi", "edge_tiled_pitched", s8, (300, 99), (2, 99, 200),
+             layout="pitched"),
+    ]
     return cases
+
+
+def route(case: Case) -> Optional[str]:
+    """The kernel a product case takes on the card (None: chained_dot, and
+    s8_mm_multi of a package without ``s8_mm_multi_route``)."""
+    N, K = case.b_shape[-1], case.a_shape[1]
+    if case.kernel == "s8_mm":
+        return ops.s8_mm_route(N, K)
+    if case.kernel == "s8_mm_multi":
+        rule = getattr(ops, "s8_mm_multi_route", None)
+        return rule(case.b_shape[0], N, K) if rule else None
+    return "tiled" if case.kernel == "tiled_mm" else None
 
 
 def cuda_ms(fn: Callable[[], object], reps: int) -> float:
@@ -190,12 +238,14 @@ def make_inputs(case: Case, gen: torch.Generator):
         return (x * scale).to(torch.bfloat16)
 
     (M, K), (_, N) = case.a_shape, case.b_shape[-2:]
+    lead = case.b_shape[:-2]  # (taps,) for s8_mm_multi
     per16 = 16 // (1 if case.dtype == torch.int8 else 2)  # elements in 16 bytes
     if case.layout == "strided":
-        return rand((M, 2 * K))[:, ::2], rand((N, K)).t()
+        return rand((M, 2 * K))[:, ::2], rand((*lead, N, K)).transpose(-1, -2)
     if case.layout == "misaligned":
+        size = K * N * (lead[0] if lead else 1)
         return (rand((M * K + 1,))[1:].view(M, K),
-                rand((K * N + 1,))[1:].view(K, N))
+                rand((size + 1,))[1:].view(case.b_shape))
     if case.layout == "pitched":
         pitch = -(-K // per16) * per16 + per16
         return rand((M, pitch))[:, :K], rand(case.b_shape)
@@ -217,8 +267,9 @@ def work(case: Case) -> Tuple[int, int]:
 def run_case(case: Case, gen: torch.Generator, reps: int,
              library: Optional[Callable] = None) -> dict:
     """Check one case against its plain version and, unless ``reps`` is 0,
-    time it.  ``library``, if given, is called as ``library(a, b)`` and
-    timed as the yardstick."""
+    time it.  ``library``, if given, is called once as ``library(a, b)``
+    and returns the call to time as the yardstick (whatever it prepares,
+    such as a stacked copy of ``a``, is made before the timing)."""
     a, b = make_inputs(case, gen)
     fn = getattr(ops, case.kernel)
     plain = getattr(ops, case.kernel + "_plain")
@@ -232,6 +283,8 @@ def run_case(case: Case, gen: torch.Generator, reps: int,
     err = float((out.double() - ref.double()).abs().max())
     if case.dtype == torch.int8:
         ok = torch.equal(out, ref)
+        if case.kernel == "s8_mm_multi" and b.shape[0] == 1:
+            ok = ok and torch.equal(out, ops.s8_mm(a, b[0]))  # one kernel
     else:
         ok = err <= BF16_TOL[case.kernel] * float(ref.abs().max())
     row = {
@@ -241,8 +294,8 @@ def run_case(case: Case, gen: torch.Generator, reps: int,
         "agrees": bool(ok), "max_abs_err": err,
         "ref_max": float(ref.abs().max()),
     }
-    if case.kernel == "s8_mm":
-        row["route"] = ops.s8_mm_route(case.b_shape[1], case.a_shape[1])
+    if route(case) is not None:
+        row["route"] = route(case)
     if reps == 0:
         return row
     n_ops, n_bytes = work(case)
@@ -260,7 +313,7 @@ def run_case(case: Case, gen: torch.Generator, reps: int,
         "plain_ms": cuda_ms(lambda: plain(*args), max(2, reps // 4)),
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": (cuda_ms(lambda: library(a, b), reps)
+        "library_ms": (cuda_ms(library(a, b), reps)
                        if library is not None else None),
     }
 
@@ -283,7 +336,7 @@ def main(argv=None) -> list:
         if args.only in (None, case.kernel):
             rows.append(run_case(case, gen, reps=0))
             print(json.dumps(rows[-1]), flush=True)
-    for case in trunk_cases() + probe_cases(args.chain):
+    for case in trunk_cases() + probe_cases(args.chain) + multi_prologue_cases():
         if args.only not in (None, case.kernel):
             continue
         rows.append(run_case(case, gen, args.reps))

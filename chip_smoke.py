@@ -5,27 +5,31 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build: every CUDA source (gather_rows, s8_mm, wgmma_mm), one nvcc
-     each, started together (sm_90a); prints each kernel's registers and
-     shared memory, counts the wgmma and TMA instructions in wgmma_mm's
-     machine code and the IGMMA (s8) / HGMMA (bf16) instructions of every
-     chained_dot kernel (none would fail the run; skipped where the toolkit
-     has no cuobjdump), and holds the chained dot's shared-memory rule in
-     ops/s8_mm.py against the one its C entry point applies;
+  2. build: every CUDA source (gather_rows, wgmma_mm), one nvcc each,
+     started together (sm_90a); prints each kernel's registers and shared
+     memory, counts the wgmma and TMA instructions in wgmma_mm's machine
+     code, the IGMMA (s8) / HGMMA (bf16) instructions of every chained_dot
+     kernel, and the IGMMA and UTMALDG instructions of every instance that
+     s8_mm_multi launches (the resident kernels and the s8 tiled one; none
+     would fail the run; skipped where the toolkit has no cuobjdump), and
+     holds the chained dot's shared-memory rule and s8_mm_multi's route
+     rule in ops/s8_mm.py against the ones their C entry points apply;
   3. kernels: each kernel against its plain PyTorch version on the card:
      gather_rows at the search's shapes, at odd row lengths (1, 3, 7, 225,
      227 bytes), from misaligned arenas and with int64 indices, and
      gather_rows_many at the arenas the search reads at one index (all bit
-     for bit); the wgmma kernels (s8_mm, tiled_mm, chained_dot) at
-     scripts/profile_s8_dots.edge_cases(): ragged M, N, K around every tile
-     edge, several rounds of the persistent grid, both routes of s8_mm,
+     for bit); the wgmma kernels (s8_mm, s8_mm_multi, tiled_mm,
+     chained_dot) at scripts/profile_s8_dots.edge_cases(): ragged M, N, K
+     around every tile edge, several rounds of the persistent grid, both
+     routes of s8_mm and of s8_mm_multi (one tap also held equal to s8_mm),
      both dtypes of chained_dot, -128 among the values, strided, misaligned
-     and pitched inputs; then s8_mm at the int8 trunk's shapes
-     and the probes' shapes, s8_mm_multi, chained_dot (R=8) and tiled_mm at
-     the probes' shapes through scripts/profile_s8_dots.run_case (s8 bit
-     for bit, bf16 within its stated tolerance); with CUDA-event times of
-     the kernel (eager, and replayed from a CUDA graph), the plain version
-     and one PyTorch library call, and the roofline bound;
+     and pitched inputs; then s8_mm at the int8 trunk's shapes and the
+     probes' shapes, s8_mm_multi at the probe's, a chunk's and a tiled-route
+     shape (and on one tile of rows), chained_dot (R=8) and tiled_mm at the
+     probes' shapes through scripts/profile_s8_dots.run_case (s8 bit for
+     bit, bf16 within its stated tolerance); with CUDA-event times of the
+     kernel (eager, and replayed from a CUDA graph), the plain version and
+     one PyTorch library call, and the roofline bound;
   4. nets on the card against the port's CPU forwards on 64 mid-game
      positions: bf16/f32 folded net, and the int8 executor on the same qp;
   5. main path at full width with the production executor: the flagship
@@ -50,8 +54,10 @@ arenas within a wave); its ``bound_ms`` counts the bytes the call must move
 The products' ``bound_ms`` is the larger of their operations at the tensor
 cores' peak (1,979 TOP/s int8, 989 TFLOP/s bf16) and their bytes (inputs
 and output once) at 3.35 TB/s.  ``library_ms`` times ``torch._int_mm``
-(s8) or ``torch.matmul`` (bf16) where they take the shape; the port itself
-calls neither for these products.
+(s8) or ``torch.matmul`` (bf16) where they take the shape, for s8_mm_multi
+``torch._int_mm`` on the stacked form ``a.repeat(1, taps) @ b.reshape(taps
+K, N)`` (the repeat made before the timing); the port itself calls neither
+for these products.
 """
 from __future__ import annotations
 
@@ -102,7 +108,7 @@ def phase_device() -> tuple:
 def phase_build() -> None:
     from alphazero_tpu_torch.ops import _build
 
-    names = ["gather_rows", "s8_mm", "wgmma_mm"]
+    names = ["gather_rows", "wgmma_mm"]
     t0 = time.perf_counter()
     _build.build(names)
     secs = time.perf_counter() - t0
@@ -120,6 +126,7 @@ def phase_build() -> None:
         "tiled": ops.dynamic_smem_bytes("tiled"),
         "resident_576x64": ops.dynamic_smem_bytes("resident", 64, 576),
         "resident_99x64": ops.dynamic_smem_bytes("resident", 64, 99),
+        "multi_resident_5x128x64": ops.dynamic_smem_bytes("resident", 64, 128, 5),
         "chained_576x64": ops.chained_dot_smem(64, 576, torch.int8),
         "chained_bf16_128x128": ops.chained_dot_smem(128, 128, torch.bfloat16)}))
     # The chained dot's shape rule in Python against its C entry point's.
@@ -131,6 +138,18 @@ def phase_build() -> None:
     if differ:
         raise AssertionError(f"chained_dot_smem differs from az_chained_smem at "
                              f"(N, K, elem_size) {differ}")
+    # s8_mm_multi's route rule in Python against its C entry point's
+    # (1 resident, 0 tiled).
+    c_route = ops._bind().wg.az_s8_mm_multi_route
+    grid = [(t, N, K) for t in (1, 2, 3, 5, 6, 7, 9, 24, 25)
+            for N in (1, 8, 21, 32, 33, 64, 65, 128, 129, 256)
+            for K in (1, 64, 99, 128, 129, 200, 576, 768, 769, 1024, 3072, 3073)]
+    differ = [(t, N, K) for t, N, K in grid
+              if c_route(t, N, K) != int(ops.s8_mm_multi_route(t, N, K) == "resident")]
+    if differ:
+        raise AssertionError(f"s8_mm_multi_route differs from "
+                             f"az_s8_mm_multi_route at (taps, N, K) {differ}")
+    log(f"[build] s8_mm_multi route rule: Python and C agree at {len(grid)} shapes")
     # The product kernels must really be wgmma fed by TMA: count both in the
     # machine code of the library just built.
     sass = _build.machine_code("wgmma_mm")
@@ -154,6 +173,19 @@ def phase_build() -> None:
     log(f"[build] chained_dot kernels: {json.dumps(chained)}")
     if len(chained) != 5 or not all(n for c in chained.values() for n in c.values()):
         raise AssertionError(f"chained_dot kernels without wgmma: {chained}")
+    # The instances s8_mm_multi launches (the resident kernel at NP = 32, 64
+    # and 128, the s8 tiled kernel): wgmma fed by TMA.
+    multi = {}
+    for chunk in sass.split("Function : ")[1:]:
+        # cu++filt may print a template argument as (int)64
+        found = re.search(r"(s8_resident_kernel|wgmma_tiled_kernel)<(?:\(int\))?(\d+)>",
+                          _build.demangle(chunk.split()[0]))
+        if found and (found.group(1) == "s8_resident_kernel" or found.group(2) == "1"):
+            multi[f"{found.group(1)}<{found.group(2)}>"] = {
+                op: len(re.findall(op + r"\.", chunk)) for op in ("IGMMA", "UTMALDG")}
+    log(f"[build] s8_mm_multi kernels: {json.dumps(multi)}")
+    if len(multi) != 4 or not all(n for c in multi.values() for n in c.values()):
+        raise AssertionError(f"s8_mm_multi kernels without wgmma or TMA: {multi}")
 
 
 def _arena(B, N, K, dtype, gen, offset=0):
@@ -309,16 +341,24 @@ def phase_kernels() -> list:
 
 
 def _library_for(case):
-    """The PyTorch call that computes the same function, where one does."""
-    if case.kernel not in ("s8_mm", "tiled_mm"):
+    """The PyTorch call that computes the same function, where one does, as
+    ``run_case`` takes it: ``library(a, b)`` returns the call to time."""
+    if case.kernel not in ("s8_mm", "s8_mm_multi", "tiled_mm"):
         return None
     if case.dtype == torch.bfloat16:
-        return torch.matmul  # bf16 result, f32 accumulation
+        return lambda a, b: lambda: torch.matmul(a, b)  # f32 accumulation
     M, K = case.a_shape
     N = case.b_shape[-1]
-    if M > 16 and K % 8 == 0 and N % 8 == 0:  # what torch._int_mm accepts
-        return torch._int_mm
-    return None
+    taps = case.b_shape[0] if case.kernel == "s8_mm_multi" else 1
+    if not (M > 16 and taps * K % 8 == 0 and N % 8 == 0):  # what _int_mm takes
+        return None
+    if case.kernel == "s8_mm_multi":
+        # stacked: sum_t a @ b[t] == [a .. a] @ vstack(b), the repeat made once
+        def stacked(a, b):
+            a_rep, b_cat = a.repeat(1, taps), b.reshape(taps * K, N)
+            return lambda: torch._int_mm(a_rep, b_cat)
+        return stacked
+    return lambda a, b: lambda: torch._int_mm(a, b)
 
 
 def phase_products() -> list:
@@ -330,13 +370,15 @@ def phase_products() -> list:
     gen = torch.Generator(device="cuda").manual_seed(0)
     edges = [probe.run_case(case, gen, reps=0) for case in probe.edge_cases()]
     log("[kernel] edge cases: " + json.dumps(
-        [[r["kernel"], r["case"], r.get("route", "tiled"), r["agrees"],
+        [[r["kernel"], r["case"], r.get("route"), r["agrees"],
           r["max_abs_err"]] for r in edges]))
-    routes = {r["route"] for r in edges if "route" in r}
-    if routes != {"resident", "tiled"}:
-        raise AssertionError(f"the edge cases took only the routes {routes}")
+    for kernel in ("s8_mm", "s8_mm_multi"):
+        routes = {r["route"] for r in edges if r["kernel"] == kernel}
+        if routes != {"resident", "tiled"}:
+            raise AssertionError(f"the {kernel} edge cases took only the routes {routes}")
     rows = []
-    for case in probe.trunk_cases() + probe.probe_cases(chain=8):
+    for case in (probe.trunk_cases() + probe.probe_cases(chain=8)
+                 + probe.multi_prologue_cases()):
         row = probe.run_case(case, gen, reps=20, library=_library_for(case))
         log("[kernel] " + json.dumps(row))
         rows.append(row)
@@ -647,7 +689,7 @@ def main() -> int:
     for kname, source, case, replaces, launches in (
             ("s8_mm", "wgmma_mm", "conv3x3_64",
              "tools/profile_fused_shapes.py:46", main_res["launches"]["s8_mm"]),
-            ("s8_mm_multi", "s8_mm", "probe_5x128x64",
+            ("s8_mm_multi", "wgmma_mm", "probe_5x128x64",
              "tools/profile_fused_shapes.py:68", probe_launches["s8_mm_multi"]),
             ("chained_dot", "wgmma_mm", "s8_3600x576x64",
              "tools/profile_inkernel_dot.py:23", probe_launches["chained_dot"]),

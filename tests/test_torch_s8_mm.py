@@ -71,10 +71,13 @@ def test_s8_mm_matches_pallas_mm(interpret, M, K, N, BM):
     np.testing.assert_array_equal(want, _np_mm(a, b))
 
 
-def test_s8_mm_multi_matches_pallas_mm_multi(interpret):
+@pytest.mark.parametrize("taps", [1, 3, 5])
+@pytest.mark.parametrize("K", [64, 128, 200])
+@pytest.mark.parametrize("N", [21, 64, 128])
+def test_s8_mm_multi_matches_pallas_mm_multi(interpret, taps, K, N):
     tool = _load_tool("profile_fused_shapes")
     rng = np.random.default_rng(1)
-    M, K, N, BM, taps = 64, 128, 64, 16, 5
+    M, BM = 32, 16
     a, b = _s8(rng, (M, K)), _s8(rng, (taps, K, N))
     want = np.asarray(tool.pallas_mm_multi(M, K, N, BM, taps)(
         jnp.asarray(a), jnp.asarray(b)))
@@ -208,18 +211,41 @@ def test_s8_mm_route(N, K, route):
         N <= 128 and ops.resident_b_bytes(N, K) <= ops.RESIDENT_B_MAX)
 
 
+@pytest.mark.parametrize("taps,N,K,route", [
+    (5, 64, 128, "resident"),      # the probe: 5 x 8 KB
+    (6, 128, 128, "resident"),     # 6 x 16 KB = 96 KB: the limit
+    (7, 128, 128, "tiled"),        # one tap more
+    (5, 128, 64, "resident"), (5, 129, 64, "tiled"),  # N = 128 against 129
+    (1, 128, 768, "resident"), (1, 128, 769, "tiled"),  # one tap: s8_mm's rule
+    (24, 32, 128, "resident"), (25, 32, 128, "tiled"),
+    (3, 32, 1024, "resident"), (3, 32, 1025, "tiled"),
+    (5, 128, 576, "tiled"), (2, 65, 577, "tiled"), (9, 8, 200, "resident"),
+])
+def test_s8_mm_multi_route(taps, N, K, route):
+    assert ops.s8_mm_multi_route(taps, N, K) == route
+    assert (route == "resident") == (
+        N <= 128 and taps * ops.resident_b_bytes(N, K) <= ops.RESIDENT_B_MAX)
+    if taps == 1:
+        assert route == ops.s8_mm_route(N, K)
+
+
 _PRODUCT_CASES = [c for c in probe.trunk_cases() + probe.probe_cases(8)
-                  + probe.edge_cases() if c.kernel in ("s8_mm", "tiled_mm")]
+                  + probe.multi_prologue_cases() + probe.edge_cases()
+                  if c.kernel in ("s8_mm", "s8_mm_multi", "tiled_mm")]
 
 
 @pytest.mark.parametrize("case", _PRODUCT_CASES,
                          ids=[f"{c.kernel}-{c.name}" for c in _PRODUCT_CASES])
 def test_every_card_case_lands_on_a_kernel_that_takes_it(case):
-    (M, K), N = case.a_shape, case.b_shape[1]
-    route = ops.s8_mm_route(N, K) if case.kernel == "s8_mm" else "tiled"
-    assert ops.kernel_accepts(route, M, N, K, case.dtype)
-    if route == "tiled" and case.kernel == "s8_mm":
-        assert not ops.kernel_accepts("resident", M, N, K, case.dtype)
+    (M, K), N = case.a_shape, case.b_shape[-1]
+    taps = case.b_shape[0] if case.kernel == "s8_mm_multi" else 1
+    route = probe.route(case)
+    assert route == {"s8_mm": ops.s8_mm_route(N, K),
+                     "s8_mm_multi": ops.s8_mm_multi_route(taps, N, K),
+                     "tiled_mm": "tiled"}[case.kernel]
+    assert ops.kernel_accepts(route, M, N, K, case.dtype, taps)
+    if route == "tiled" and case.kernel != "tiled_mm":
+        assert not ops.kernel_accepts("resident", M, N, K, case.dtype, taps)
 
 
 def test_edge_cases_take_both_routes_and_every_layout():
@@ -231,11 +257,37 @@ def test_edge_cases_take_both_routes_and_every_layout():
     assert any(c.a_shape[0] > 2 * 132 * 128 for c in s8)  # over two rounds
 
 
+def test_multi_edge_cases_take_both_routes_and_every_layout():
+    multi = [c for c in probe.edge_cases() if c.kernel == "s8_mm_multi"]
+    routes = {(probe.route(c), c.b_shape[0] == 1) for c in multi}
+    assert routes == {("resident", True), ("resident", False), ("tiled", True),
+                      ("tiled", False)}
+    assert {c.layout for c in multi} == {"dense", "strided", "misaligned", "pitched"}
+    assert any(c.lowest == -128 for c in multi)
+    assert any(c.a_shape[0] > 2 * 132 * 128 and c.b_shape[0] == 5 for c in multi)
+    # each side of the resident limit at K = N = 128
+    assert {c.b_shape for c in multi if c.b_shape[1:] == (128, 128)} >= {
+        (6, 128, 128), (7, 128, 128)}
+    # the tiled route at N > 128, and with taps whose images exceed 96 KB
+    assert any(probe.route(c) == "tiled" and c.b_shape[2] > 128 for c in multi)
+    assert any(probe.route(c) == "tiled" and c.b_shape[2] <= 128 for c in multi)
+    # b read in 16-byte pieces (N % 16 == 0, the padded rows past N among
+    # them), in words, byte by byte; K ragged against a 32-byte step
+    assert {c.b_shape[2] % 16 == 0 for c in multi} == {True, False}
+    assert any(c.b_shape[2] % 16 and c.b_shape[2] % 4 == 0 for c in multi)
+    assert any(c.b_shape[2] % 16 == 0 and c.b_shape[2] not in (32, 64, 128)
+               for c in multi)
+    assert any(c.a_shape[1] % 32 for c in multi)
+
+
 @pytest.mark.parametrize("wrapper,dtype,N,K,want", [
     ("s8_mm", torch.int8, 64, 576, "resident"),
     ("s8_mm", torch.int8, 2048, 2048, "tiled"),
     ("tiled_mm", torch.int8, 64, 576, "tiled"),
     ("tiled_mm", torch.bfloat16, 64, 576, "tiled"),
+    ("s8_mm_multi", torch.int8, 64, 128, "resident"),
+    ("s8_mm_multi", torch.int8, 128, 576, "tiled"),
+    ("s8_mm_multi", torch.int8, 129, 64, "tiled"),
 ])
 def test_off_the_cpu_no_wrapper_takes_a_plain_version(monkeypatch, wrapper,
                                                       dtype, N, K, want):
@@ -247,20 +299,63 @@ def test_off_the_cpu_no_wrapper_takes_a_plain_version(monkeypatch, wrapper,
                         lambda a, b: taken.append("resident"))
     monkeypatch.setattr(ops, "_launch_wgmma_tiled",
                         lambda w, a, b: taken.append("tiled"))
+    monkeypatch.setattr(ops, "_launch_multi",
+                        lambda a, b, route: taken.append(route))
 
     def refuse(*args):
         raise AssertionError("a plain version was called")
 
-    for name in ("s8_mm_plain", "tiled_mm_plain", "_int_matmul"):
+    for name in ("s8_mm_plain", "s8_mm_multi_plain", "tiled_mm_plain",
+                 "_int_matmul"):
         monkeypatch.setattr(ops, name, refuse)
     a = torch.empty((300, K), dtype=dtype, device="meta")
-    b = torch.empty((K, N), dtype=dtype, device="meta")
+    b_shape = (5, K, N) if wrapper == "s8_mm_multi" else (K, N)
+    b = torch.empty(b_shape, dtype=dtype, device="meta")
     getattr(ops, wrapper)(a, b)
     assert taken == [want]
 
 
+@pytest.mark.parametrize("taps,N,K,scratch", [(5, 64, 128, None),
+                                              (5, 128, 576, (128, 5 * 640)),
+                                              (1, 200, 99, (200, 112))])
+def test_off_the_cpu_s8_mm_multi_launches_its_kernel(monkeypatch, taps, N, K,
+                                                     scratch):
+    """``az_s8_mm_multi`` gets the true M, N, K, the pitch of ``a`` and the
+    tap count, and scratch for the transposed taps only on the tiled
+    route; the output is allocated at its true N."""
+    calls, sizes = [], []
+    monkeypatch.setattr(ops, "_check_pair", lambda *args, **kw: None)
+    monkeypatch.setattr(ops, "_fns", SimpleNamespace(
+        wg=None, multi=lambda *a: calls.append(a) or 0))
+    monkeypatch.setattr(ops._build, "stream_of", lambda x: 0)
+    monkeypatch.setattr(ops, "s8_mm_multi_plain", None)
+    empty = torch.empty
+
+    def record(size, **kw):
+        sizes.append(tuple(size))
+        return empty(size, **kw)
+
+    monkeypatch.setattr(ops.torch, "empty", record)
+    a = empty((3000, K), dtype=torch.int8, device="meta")
+    b = empty((taps, K, N), dtype=torch.int8, device="meta")
+    before = s8_mm_multi.launches
+    out = s8_mm_multi(a, b)
+    assert out.shape == (3000, N) and out.dtype == torch.int32
+    assert s8_mm_multi.launches == before + 1 and len(calls) == 1
+    assert calls[0][4:9] == (3000, N, K, -(-K // 16) * 16, taps)  # a's pitch
+    assert sizes[0] == (3000, N)
+    assert scratch in sizes if scratch else sizes == [(3000, N)]
+    assert (calls[0][2] is None) == (scratch is None)
+
+
 def test_kernel_accepts_mirrors_the_entry_points():
     s8, bf = torch.int8, torch.bfloat16
+    assert ops.kernel_accepts("resident", 10, 128, 128, s8, taps=6)
+    assert not ops.kernel_accepts("resident", 10, 128, 128, s8, taps=7)
+    assert ops.kernel_accepts("tiled", 10, 128, 128, s8, taps=7)
+    assert not ops.kernel_accepts("tiled", 10, 128, 128, bf, taps=2)
+    assert not ops.kernel_accepts("tiled", 10, 128, 128, s8, taps=0)
+    assert not ops.kernel_accepts("tiled", 10, 64, 2**20, s8, taps=2**12)
     assert ops.kernel_accepts("resident", 0, 64, 576, s8)   # nothing to do
     assert not ops.kernel_accepts("resident", 10, 64, 0, s8)
     assert not ops.kernel_accepts("resident", 10, 129, 64, s8)
@@ -465,6 +560,57 @@ def test_transpose_b_plain_matches_numpy(K, N):
     assert got.shape == (N, -(-K // 16) * 16)
     np.testing.assert_array_equal(got[:, :K], b.T)
     assert not got[:, K:].any()
+    # one tap of the taps form is the same scratch
+    np.testing.assert_array_equal(
+        ops.transpose_b_plain(torch.from_numpy(b[None])).numpy(), got)
+
+
+@pytest.mark.parametrize("taps,K,N", [(2, 1, 1), (3, 99, 21), (5, 576, 128),
+                                      (2, 130, 256), (7, 128, 128), (2, 577, 65)])
+def test_tap_padded_scratch_matches_numpy(taps, K, N):
+    """The tiled route's scratch for ``b [taps, K, N]``: ``[N, taps * Kp]``,
+    Kp = K rounded up to 128 bytes, tap t transposed at columns t * Kp, zeros
+    between the taps; the product over it equals the sum over the taps."""
+    rng = np.random.default_rng(11)
+    b = rng.integers(-128, 128, (taps, K, N)).astype(np.int8)
+    got = ops.transpose_b_plain(torch.from_numpy(b)).numpy()
+    kp = -(-K // 128) * 128
+    assert ops.tap_pitch(taps, K) == kp and got.shape == (N, taps * kp)
+    want = np.zeros((N, taps, kp), np.int8)
+    want[:, :, :K] = b.transpose(2, 0, 1)
+    np.testing.assert_array_equal(got, want.reshape(N, taps * kp))
+    # what the kernel's stages compute: a's K restarts at each tap against
+    # the tap's columns of the scratch
+    a = _s8(rng, (9, K))
+    a_pad = np.zeros((9, kp), np.int8)
+    a_pad[:, :K] = a
+    acc = sum(_np_mm(a_pad, got[:, t * kp:(t + 1) * kp].T) for t in range(taps))
+    np.testing.assert_array_equal(acc, sum(_np_mm(a, b[t]) for t in range(taps)))
+
+
+@pytest.mark.parametrize("taps,K,N", [(5, 128, 64), (1, 99, 21), (6, 128, 128),
+                                      (9, 200, 8), (4, 256, 48), (3, 1024, 32)])
+def test_pack_b_multi_plain_stacks_the_tap_images(taps, K, N):
+    """The resident kernel's image of ``b [taps, K, N]``: tap t's panels
+    right after tap t - 1's, each the swizzled transpose of its 128 bytes of
+    K, each on a 1024-byte boundary, all of it within the resident limit."""
+    rng = np.random.default_rng(12)
+    b = rng.integers(-128, 128, (taps, K, N)).astype(np.int8)
+    img = ops.pack_b_multi_plain(torch.from_numpy(b)).numpy()
+    panels = -(-K // 128)
+    padded_n = ops.resident_b_bytes(N, K) // (panels * 128)
+    assert img.shape == (taps * panels, padded_n * 128)
+    assert img.nbytes == taps * ops.resident_b_bytes(N, K) <= ops.RESIDENT_B_MAX
+    assert img.shape[1] % 1024 == 0  # every panel starts swizzle-aligned
+    for t in range(taps):
+        want = np.zeros((padded_n, panels * 128), np.int8)
+        want[:N, :K] = b[t].T
+        np.testing.assert_array_equal(
+            _unswizzle(img[t * panels:(t + 1) * panels], padded_n), want)
+    for t, k, n in ((0, 0, 0), (taps - 1, K - 1, N - 1), (taps // 2, K // 2, N // 2)):
+        flat = img.reshape(-1)
+        off = (t * panels + k // 128) * padded_n * 128 + ops.swizzled_offset(n, k % 128)
+        assert flat[off] == b[t, k, n]
 
 
 @pytest.mark.parametrize("K", [64, 1024, 1025, 2048])
@@ -528,8 +674,10 @@ def test_kernels_match_plain_on_card():
         a, b = s8(M, K), s8(K, N)
         assert torch.equal(s8_mm(a, b), s8_mm_plain(a, b))
         assert torch.equal(tiled_mm(a, b), tiled_mm_plain(a, b))
-    a, b = s8(14400, 128), s8(5, 128, 64)
-    assert torch.equal(s8_mm_multi(a, b), s8_mm_multi_plain(a, b))
+    for M, K, N, taps in [(14400, 128, 64, 5), (115200, 128, 64, 5),
+                          (14400, 576, 128, 5)]:
+        a, b = s8(M, K), s8(taps, K, N)
+        assert torch.equal(s8_mm_multi(a, b), s8_mm_multi_plain(a, b))
     a, b = s8(3600, 576), s8(576, 64)
     assert torch.equal(chained_dot(a, b, 8), chained_dot_plain(a, b, 8))
     a = (torch.randn(512, 2048, device="cuda", generator=g) * 0.02).bfloat16()
