@@ -58,3 +58,11 @@ def where_lanes(mask: torch.Tensor, a, b):
         m = mask.reshape((-1,) + (1,) * (x.dim() - 1))
         out[f.name] = torch.where(m, x, y)
     return type(a)(**out)
+
+
+def stack_states(states):
+    """Stack a sequence of batched state dataclasses along a new leading
+    axis: fields [B, ...] -> [T, B, ...]."""
+    return type(states[0])(**{
+        f.name: torch.stack([getattr(s, f.name) for s in states])
+        for f in dataclasses.fields(states[0])})

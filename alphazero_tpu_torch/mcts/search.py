@@ -191,8 +191,10 @@ def _puct(prior, child_visits, child_value, node_visits, node_value,
 def instantiate_tree(env, root_states, root_logits, root_value,
                      config: MCTSConfig,
                      generator: torch.Generator | None = None) -> Tree:
-    """Allocate the arenas and install the evaluated roots, with Dirichlet
-    noise drawn from ``generator`` when one is given."""
+    """Allocate the arenas and install the evaluated roots.  With
+    ``dirichlet_epsilon > 0`` the root priors are mixed with Dirichlet noise
+    drawn from ``generator``, or from the device's default generator when
+    none is given (the JAX search always noises the root)."""
     B, A = root_logits.shape
     N = config.num_nodes
     K = min(config.max_children, A)
@@ -200,7 +202,7 @@ def instantiate_tree(env, root_states, root_logits, root_value,
 
     legal = env.legal_mask(root_states)
     prior = masked_softmax(root_logits.float(), legal)
-    if generator is not None and config.dirichlet_epsilon > 0:
+    if config.dirichlet_epsilon > 0:
         alpha = torch.full((B, A), config.dirichlet_alpha, device=dev)
         noise = torch._standard_gamma(alpha, generator=generator)
         noise = torch.where(legal, noise, 0.0)
@@ -508,7 +510,8 @@ def _finalize(tree: Tree) -> SearchOutput:
 def search(env, eval_fn: EvalFn, root_states, config: MCTSConfig,
            generator: torch.Generator | None = None) -> SearchOutput:
     """Run ``config.num_simulations`` simulations (in whole waves) from the
-    given roots; Dirichlet noise comes from ``generator`` when given."""
+    given roots; Dirichlet noise comes from ``generator`` (default: the
+    device's default generator)."""
     check_ported(config)
     with torch.no_grad():
         obs = env.observation(root_states)

@@ -9,7 +9,9 @@ flax names modules by creation order: the top level holds ``Conv_0`` (stem),
 ``BatchNorm_0``, ``ResBlock_i``, then ``Conv_1``/``Dense_0`` (policy head)
 and ``Conv_2``/``Dense_1``/``Dense_2`` (value head); each block holds
 ``Conv_0``, ``BatchNorm_0``, ``Conv_1``, ``BatchNorm_1`` and ``SEBlock_0``
-with ``Dense_0``/``Dense_1``.
+with ``Dense_0``/``Dense_1``.  A ``norm="group"`` net has ``GroupNorm_i``
+where a batch-norm net has ``BatchNorm_i``, and no ``batch_stats``.
+``flax_from_state_dict`` maps the other way, to numpy arrays in flax's tree.
 
 ``folded_from_jax`` and ``quant_params_from_jax`` carry the flat ``fp`` and
 ``qp`` dicts of the JAX ``models/quant.py`` across as they are (NHWC/HWIO
@@ -43,27 +45,39 @@ def _dense(sd, name, p):
 def _bn(sd, name, p, s):
     sd[f"{name}.weight"] = _t(p["scale"])
     sd[f"{name}.bias"] = _t(p["bias"])
-    sd[f"{name}.running_mean"] = _t(s["mean"])
-    sd[f"{name}.running_var"] = _t(s["var"])
-    sd[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    if s is not None:
+        sd[f"{name}.running_mean"] = _t(s["mean"])
+        sd[f"{name}.running_var"] = _t(s["var"])
+        sd[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+
+
+def _norm_name(params) -> str | None:
+    for name in ("BatchNorm", "GroupNorm"):
+        if f"{name}_0" in params:
+            return name
+    return None
 
 
 def state_dict_from_flax(variables: Dict, num_blocks: int) -> Dict[str, torch.Tensor]:
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
-    batch = "BatchNorm_0" in params
+    norm = _norm_name(params)
+
+    def norm_pair(dst, src_p, src_s, i):
+        if norm is not None:
+            key = f"{norm}_{i}"
+            _bn(sd, dst, src_p[key], src_s[key] if norm == "BatchNorm" else None)
+
     _conv(sd, "stem", params["Conv_0"])
-    if batch:
-        _bn(sd, "stem_bn", params["BatchNorm_0"], stats["BatchNorm_0"])
+    norm_pair("stem_bn", params, stats, 0)
     for i in range(num_blocks):
         blk, bst = params[f"ResBlock_{i}"], stats.get(f"ResBlock_{i}", {})
         pre = f"blocks.{i}"
         _conv(sd, f"{pre}.conv1", blk["Conv_0"])
         _conv(sd, f"{pre}.conv2", blk["Conv_1"])
-        if batch:
-            _bn(sd, f"{pre}.bn1", blk["BatchNorm_0"], bst["BatchNorm_0"])
-            _bn(sd, f"{pre}.bn2", blk["BatchNorm_1"], bst["BatchNorm_1"])
+        norm_pair(f"{pre}.bn1", blk, bst, 0)
+        norm_pair(f"{pre}.bn2", blk, bst, 1)
         _dense(sd, f"{pre}.se.fc1", blk["SEBlock_0"]["Dense_0"])
         _dense(sd, f"{pre}.se.fc2", blk["SEBlock_0"]["Dense_1"])
     _conv(sd, "policy_conv", params["Conv_1"])
@@ -72,6 +86,59 @@ def state_dict_from_flax(variables: Dict, num_blocks: int) -> Dict[str, torch.Te
     _dense(sd, "value_fc1", params["Dense_1"])
     _dense(sd, "value_fc2", params["Dense_2"])
     return sd
+
+
+def flax_from_state_dict(sd: Dict[str, torch.Tensor], num_blocks: int,
+                         norm: str = "batch") -> Dict[str, Dict]:
+    """The port's ``AZResNet.state_dict`` as flax variables: numpy float32
+    ``{"params": ..., "batch_stats": ...}`` (no ``batch_stats`` unless
+    ``norm="batch"``), the tree JAX's ``model.init`` gives."""
+    def a(key):
+        return sd[key].detach().float().cpu().numpy().copy()
+
+    def conv(name):
+        out = {"kernel": a(f"{name}.weight").transpose(2, 3, 1, 0)}
+        if f"{name}.bias" in sd:
+            out["bias"] = a(f"{name}.bias")
+        return out
+
+    def dense(name):
+        return {"kernel": a(f"{name}.weight").T.copy(), "bias": a(f"{name}.bias")}
+
+    tag = {"batch": "BatchNorm", "group": "GroupNorm"}.get(norm)
+    params: Dict = {}
+    stats: Dict = {}
+
+    def put_norm(p_dst, s_dst, name, i):
+        if tag is None:
+            return
+        p_dst[f"{tag}_{i}"] = {"scale": a(f"{name}.weight"), "bias": a(f"{name}.bias")}
+        if tag == "BatchNorm":
+            s_dst[f"{tag}_{i}"] = {"mean": a(f"{name}.running_mean"),
+                                   "var": a(f"{name}.running_var")}
+
+    params["Conv_0"] = conv("stem")
+    put_norm(params, stats, "stem_bn", 0)
+    for i in range(num_blocks):
+        pre = f"blocks.{i}"
+        blk: Dict = {"Conv_0": conv(f"{pre}.conv1"), "Conv_1": conv(f"{pre}.conv2"),
+                     "SEBlock_0": {"Dense_0": dense(f"{pre}.se.fc1"),
+                                   "Dense_1": dense(f"{pre}.se.fc2")}}
+        bst: Dict = {}
+        put_norm(blk, bst, f"{pre}.bn1", 0)
+        put_norm(blk, bst, f"{pre}.bn2", 1)
+        params[f"ResBlock_{i}"] = blk
+        if bst:
+            stats[f"ResBlock_{i}"] = bst
+    params["Conv_1"] = conv("policy_conv")
+    params["Dense_0"] = dense("policy_fc")
+    params["Conv_2"] = conv("value_conv")
+    params["Dense_1"] = dense("value_fc1")
+    params["Dense_2"] = dense("value_fc2")
+    out = {"params": params}
+    if tag == "BatchNorm":
+        out["batch_stats"] = stats
+    return out
 
 
 def _tree_to_torch(x: Any, device) -> Any:

@@ -513,23 +513,33 @@ def make_int8_eval_fn(model: AZResNet, calib_obs=None, chunk: int = 512,
     return eval_fn
 
 
-def make_production_eval_fn(env, model: AZResNet, device="cuda",
-                            generator: torch.Generator | None = None):
-    """The production executor of ``production.py`` for ``model``: rollout
-    calibration observations from the folded net's own policy, then the
-    int8 evaluator with the pinned percentile, residual, heads and chunk.
-    Returns ``(eval_fn, calib_obs)``."""
+def make_production_eval_params(env, model: AZResNet, device="cuda",
+                                generator: torch.Generator | None = None):
+    """The production executor of ``production.py`` for ``model``, in the
+    params style of ``make_int8_eval_params``: rollout calibration
+    observations from the folded net's own policy, then the int8 evaluator
+    with the pinned percentile, residual, heads and chunk.  Returns
+    ``(eval_fn, qp, calib_obs)``; ``eval_fn(qp, obs, to_play)``."""
     from alphazero_tpu_torch import production
 
     calib = make_rollout_calib_fn(
         env, make_inference_eval_fn(model), n=production.CALIB_GAMES,
         plies=production.CALIB_PLIES, every=production.CALIB_EVERY,
         device=device)(None, generator)
-    eval_fn = make_int8_eval_fn(
+    eval_fn, qp = make_int8_eval_params(
         model, calib_obs=calib, chunk=production.INT8_CHUNK,
         residual=production.INT8_RESIDUAL, heads=production.INT8_HEADS,
         calib_percentile=production.INT8_CALIB_PERCENTILE)
-    return eval_fn, calib
+    return eval_fn, qp, calib
+
+
+def make_production_eval_fn(env, model: AZResNet, device="cuda",
+                            generator: torch.Generator | None = None):
+    """``make_production_eval_params`` with its parameters bound: returns
+    ``(eval_fn, calib_obs)``; ``eval_fn(obs, to_play=None)``."""
+    eval_fn, qp, calib = make_production_eval_params(env, model, device,
+                                                     generator)
+    return (lambda obs, to_play=None: eval_fn(qp, obs, to_play)), calib
 
 
 def _infer_obs_shape(model: AZResNet) -> Tuple[int, int, int]:

@@ -48,7 +48,7 @@ def main(argv=None):
     from alphazero_tpu_torch.models.stub import make_uniform_eval_fn
     from alphazero_tpu_torch.selfplay import game_record
     from alphazero_tpu_torch.selfplay.actor import (
-        SelfPlayConfig, SelfPlayOutput, make_host_actor,
+        SelfPlayConfig, make_host_actor, stack_records,
     )
 
     device = torch.device(args.device)
@@ -93,19 +93,7 @@ def main(argv=None):
         now = time.perf_counter()
         think_ms.append((now - t_prev) * 1000)
         t_prev = now
-    active = torch.stack([r.active for r in recs])
-    out = SelfPlayOutput(
-        states=states,
-        actions=torch.stack([r.action for r in recs]),
-        policies=torch.stack([r.policy for r in recs]),
-        root_values=torch.stack([r.root_value for r in recs]),
-        to_play=torch.stack([r.to_play for r in recs]),
-        active=active,
-        ended_winner=torch.stack([r.ended_winner for r in recs]),
-        winner=env.winner(states),
-        length=active.sum(0).to(torch.int32),
-        move_states=None,
-    )
+    out = stack_records(env, states, recs)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.perf_counter() - t0

@@ -15,7 +15,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from alphazero_tpu_torch.core.types import where_lanes
+from alphazero_tpu_torch.core.types import stack_states, where_lanes
 from alphazero_tpu_torch.mcts.search import (
     EvalFn, MCTSConfig, make_host_search, select_action,
 )
@@ -81,6 +81,25 @@ def _step_and_record(env, states, action, policy, root_value, active,
         fresh = env.init(action.shape[0], device=action.device)
         new_states = where_lanes(done, fresh, new_states)
     return new_states, record
+
+
+def stack_records(env, final_states, records) -> SelfPlayOutput:
+    """The ``SelfPlayOutput`` of a host-driven move loop: its per-move
+    ``MoveRecord``s stacked along a leading T axis, and the final states."""
+    active = torch.stack([r.active for r in records])
+    recorded = records[0].states is not None
+    return SelfPlayOutput(
+        states=final_states,
+        actions=torch.stack([r.action for r in records]),
+        policies=torch.stack([r.policy for r in records]),
+        root_values=torch.stack([r.root_value for r in records]),
+        to_play=torch.stack([r.to_play for r in records]),
+        active=active,
+        ended_winner=torch.stack([r.ended_winner for r in records]),
+        winner=env.winner(final_states),
+        length=active.sum(0).to(torch.int32),
+        move_states=stack_states([r.states for r in records]) if recorded else None,
+    )
 
 
 def value_targets(output: SelfPlayOutput) -> torch.Tensor:

@@ -4,20 +4,23 @@ board_size, use_variant_rules, moves[{action, policy[], value,
 thinking_time_ms}], result, timestamp``.  Stored policies are
 full-action-space visit distributions.
 
-Not ported yet: ``records_to_training_arrays`` (the training slice) and the
-optional native encoder (records are written with ``json``).
+``records_to_training_arrays`` replays records through the env into
+training arrays.  Not ported yet: the optional native encoder (records are
+written with ``json``).
 """
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import os
 import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
-from alphazero_tpu_torch.core.types import GameResult, GameType
+from alphazero_tpu_torch.core.types import GameResult, GameType, stack_states
 
 
 @dataclasses.dataclass
@@ -132,3 +135,55 @@ def records_from_selfplay(env, output, max_games: Optional[int] = None,
             rec.set_result(GameResult.DRAW)
         records.append(rec)
     return records
+
+
+def records_to_training_arrays(env, records: List[GameRecord], device="cuda"):
+    """Replay saved GameRecords through the env to regenerate the states
+    (the reference's ``Dataset::extractExamples``: each record replayed
+    from a fresh state, the value target the final result from the side to
+    move).
+
+    Returns ``(states, policy, z, mask)`` with leading dims [T, G]: the
+    pre-move states, full-action-space policy targets, +-1/0 value targets
+    and a validity mask.  A stored policy that is not full-action-space (or
+    sums to 0) becomes a one-hot of the played action."""
+    G = len(records)
+    if G == 0:
+        raise ValueError("no records to ingest")
+    lens = [len(r.moves) for r in records]
+    T = max(lens)
+    A = env.num_actions
+
+    actions = np.zeros((T, G), np.int32)
+    policies = np.zeros((T, G, A), np.float32)
+    winner = np.full((G,), -1, np.int32)
+    for g, rec in enumerate(records):
+        if rec.result == GameResult.WIN_PLAYER1:
+            winner[g] = 0
+        elif rec.result == GameResult.WIN_PLAYER2:
+            winner[g] = 1
+        for t, m in enumerate(rec.moves):
+            actions[t, g] = m.action
+            pol = np.asarray(m.policy, np.float32)
+            if pol.shape[0] == A and pol.sum() > 0:
+                policies[t, g] = pol / pol.sum()
+            else:
+                policies[t, g, m.action] = 1.0
+
+    states = env.init(G, device=device)
+    per_move = []
+    for t in range(T):
+        per_move.append(states)
+        states = env.step(states, torch.from_numpy(actions[t]).to(device))
+    states_t = stack_states(per_move)
+    w = torch.from_numpy(winner).to(device)[None, :]
+    tp = torch.stack([env.to_play(s) for s in per_move])
+    z = torch.where(w < 0, 0.0, torch.where(w == tp, 1.0, -1.0)).float()
+    mask = torch.from_numpy(np.arange(T)[:, None] < np.asarray(lens)[None, :])
+    return states_t, torch.from_numpy(policies).to(device), z, mask.to(device)
+
+
+def load_records_dir(games_dir: str) -> List[GameRecord]:
+    """Every ``*.json`` GameRecord in a directory, in name order."""
+    paths = sorted(glob.glob(os.path.join(games_dir, "*.json")))
+    return [GameRecord.load(p) for p in paths]

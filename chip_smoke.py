@@ -46,7 +46,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   8. card vs CPU search: B=64, 256 simulations, W=16, zero-value uniform
      evaluator, no noise, greedy, on 15x15 openings and on crowded 7x7
      positions (deeper trees): visit counts must be equal;
-  9. summary: one JSON line of kernels, then the final status line.
+  9. training at the flagship width (6x64 SE-ResNet, 15x15): the learner
+     on one fixed batch of 1024, 3 AdamW steps on the card against the
+     same on the CPU, in float32 (TF32 off) and in bf16 compute, with the
+     limits printed beside the differences; 30 steps on the card (the
+     loss must fall; train steps/s); then the Pipeline with the int8
+     executor from the flagship weights for 2 iterations at a reduced
+     depth (printed): s8_mm and gather_rows launched in each actor run,
+     replay filled, finite losses, weights and refreshed quantised
+     parameters changed, a checkpoint restored bit for bit, history.json
+     written; actor and learner seconds, moves/s, peak device memory;
+ 10. summary: one JSON line of kernels, then the final status line.
 
 gather_rows times are taken with warm L2 (the search re-reads the same
 arenas within a wave); its ``bound_ms`` counts the bytes the call must move
@@ -61,6 +71,8 @@ for these products.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -632,6 +644,347 @@ def phase_card_vs_cpu() -> list:
     return out
 
 
+def _named_tensors(tree, prefix="") -> dict:
+    """The tensors of a nested dict/list tree by dotted path."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree} if isinstance(tree, torch.Tensor) else {}
+    out = {}
+    for k, v in items:
+        out.update(_named_tensors(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def _learner_run(model_path, env, batch_cpu, cfg, device, steps, dtype=None,
+                 perm=None):
+    """``steps`` train steps of the flagship bundle on one fixed batch on
+    ``device`` (its rows in the order ``perm``, where given); returns
+    (initial params, final params, losses, step seconds, the first step's
+    gradients after the clip)."""
+    from alphazero_tpu_torch.models.io import load_model
+    from alphazero_tpu_torch.training import learner, replay
+
+    model, _ = load_model(model_path, env.observation_shape, device=device)
+    if dtype is not None:
+        model.cfg = dataclasses.replace(model.cfg, dtype=dtype)
+    init = {k: v.detach().clone() for k, v in model.named_parameters()}
+    state = learner.create_train_state(model, cfg)
+    batch = replay.Batch(*(x if perm is None else x[perm] for x in batch_cpu))
+    batch = replay.Batch(*(x.to(device) for x in batch))
+    losses, times, grads = [], [], None
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = learner.train_step(state, batch, cfg)
+        losses.append(m.loss)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if grads is None:
+            grads = torch.cat([p.grad.detach().ravel().cpu() for p in model.parameters()])
+    final = {k: v.detach().cpu() for k, v in model.named_parameters()}
+    return ({k: v.cpu() for k, v in init.items()}, final,
+            [float(x) for x in losses], times, grads)
+
+
+def _compare_learners(card, cpu, lr) -> dict:
+    """Card against CPU after the same steps: the first step's gradients,
+    the per-step losses, and the updates (final - initial params) of all
+    parameters."""
+    (_, f_card, l_card, _, g_card), (init, f_cpu, l_cpu, _, g_cpu) = card, cpu
+    d_card = torch.cat([(f_card[k] - init[k]).ravel() for k in init])
+    d_cpu = torch.cat([(f_cpu[k] - init[k]).ravel() for k in init])
+    diff = (d_card - d_cpu).abs()
+    return {
+        "loss_card": l_card, "loss_cpu": l_cpu,
+        "grad_rel_err": float((g_card - g_cpu).norm() / g_cpu.norm()),
+        "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu)),
+        "update_rel_err": float((d_card - d_cpu).norm() / d_cpu.norm()),
+        "param_max_abs_err": float(diff.max()),
+        "param_share_off_0.1lr": float((diff > 0.1 * lr).float().mean()),
+        "params": d_cpu.numel(),
+    }
+
+
+class _KernelCalls:
+    """While active, keeps the inputs of the first call of each distinct
+    signature (shapes, strides, dtypes, each base's offset from 16 bytes)
+    of the kernel wrappers that the search and the int8 executor call, and
+    counts the calls of each.  It wraps the names those modules bound at
+    import and passes every call on unchanged, so the wrappers' own launch
+    counts stay what the path launched."""
+
+    def __init__(self):
+        self.cases = {}  # (name, signature) -> [args, calls]
+
+    @staticmethod
+    def _sig(x):
+        if isinstance(x, (tuple, list)):
+            return tuple(_KernelCalls._sig(t) for t in x)
+        return (tuple(x.shape), tuple(x.stride()), str(x.dtype).replace("torch.", ""),
+                x.data_ptr() % 16)
+
+    def _wrap(self, name, fn):
+        def call(*args):
+            key = (name, self._sig(args))
+            self.cases.setdefault(key, [args, 0])[1] += 1
+            return fn(*args)
+        return call
+
+    def __enter__(self):
+        from alphazero_tpu_torch.mcts import search
+        from alphazero_tpu_torch.models import quant
+
+        self._orig = [(search, "gather_rows"), (search, "gather_rows_many"),
+                      (quant, "s8_mm")]
+        self._orig = [(m, n, getattr(m, n)) for m, n in self._orig]
+        for m, n, fn in self._orig:
+            setattr(m, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self._orig:
+            setattr(m, n, fn)
+
+
+def _hold_recorded(cases) -> list:
+    """Each recorded call again through its kernel and its plain version on
+    the same tensors: bit for bit (the s8 products are exact; a gather
+    moves bytes)."""
+    from alphazero_tpu_torch.ops.gather_rows import (
+        gather_rows, gather_rows_many, gather_rows_many_plain, gather_rows_plain)
+    from alphazero_tpu_torch.ops.s8_mm import s8_mm, s8_mm_plain
+
+    fns = {"s8_mm": (s8_mm, s8_mm_plain), "gather_rows": (gather_rows, gather_rows_plain),
+           "gather_rows_many": (gather_rows_many, gather_rows_many_plain)}
+    rows = []
+    for (name, sig), (args, calls) in cases.items():
+        kern, plain = fns[name]
+        out, ref = kern(*args), plain(*args)
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        equal = all(o.dtype == r.dtype and o.shape == r.shape
+                    and torch.equal(o.view(torch.uint8), r.view(torch.uint8))
+                    for o, r in zip(outs, refs))
+        rows.append({"kernel": name, "inputs": sig, "calls": calls, "bit_equal": equal})
+    torch.cuda.synchronize()
+    return rows
+
+
+def phase_train(env, model_path) -> dict:
+    """The training slice at the flagship width (6x64 SE-ResNet, 15x15).
+
+    Learner: the flagship bundle in train mode on one fixed batch of 1024
+    (mid-game observations, random targets from a seed), 3 AdamW steps at
+    lr 1e-3 on the card and on the CPU, in float32 (TF32 off) and in the
+    production policy (bf16 compute, f32 master weights); then 30 steps on
+    the card, whose loss must fall, timed.  Pipeline: the int8 executor from
+    the flagship weights, 2 iterations at a reduced depth; s8_mm and
+    gather_rows must launch in each actor run, the learner's weights and
+    the refreshed quantised parameters must change, and a checkpoint must
+    restore bit for bit.  Every distinct s8_mm and gather call of the
+    second iteration (shape, layout and alignment) is held against its plain
+    version on its own inputs, and the refreshed evaluator on 256 replay
+    observations against the same evaluator with the plain s8 product, bit
+    for bit."""
+    import tempfile
+
+    from alphazero_tpu_torch.mcts.search import MCTSConfig
+    from alphazero_tpu_torch.models.io import load_model
+    from alphazero_tpu_torch.ops.gather_rows import gather_rows
+    from alphazero_tpu_torch.models import quant
+    from alphazero_tpu_torch.ops.s8_mm import s8_mm, s8_mm_plain
+    from alphazero_tpu_torch.selfplay.actor import SelfPlayConfig
+    from alphazero_tpu_torch.training import replay
+    from alphazero_tpu_torch.training.learner import LearnerConfig
+    from alphazero_tpu_torch.training.pipeline import Pipeline, PipelineConfig
+
+    t_phase = time.perf_counter()
+    B, A, lr, steps = 1024, env.num_actions, 1e-3, 3
+    rng = np.random.RandomState(5)
+    obs = env.observation(_random_states(env, B, 60, seed=5, device="cpu"))
+    policy = torch.softmax(torch.from_numpy(
+        rng.normal(size=(B, A)).astype(np.float32) * 2), -1)
+    value = torch.from_numpy(np.tanh(rng.normal(size=B)).astype(np.float32))
+    batch = (obs, policy, value)
+    cfg = LearnerConfig(learning_rate=lr, scheduler="constant", warmup_steps=0)
+
+    res = {}
+    perm = torch.from_numpy(np.random.RandomState(6).permutation(B))
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card32 = _learner_run(model_path, env, batch, cfg, "cuda", steps, torch.float32)
+        res["f32"] = _compare_learners(
+            card32, _learner_run(model_path, env, batch, cfg, "cpu", steps,
+                                 torch.float32), lr)
+        # The card against itself on the same batch in another row order:
+        # what the order of the f32 sums alone does.
+        res["f32_card_permuted"] = _compare_learners(
+            card32, _learner_run(model_path, env, batch, cfg, "cuda", steps,
+                                 torch.float32, perm), lr)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    res["bf16"] = _compare_learners(
+        _learner_run(model_path, env, batch, cfg, "cuda", steps),
+        _learner_run(model_path, env, batch, cfg, "cpu", steps), lr)
+    for k in ("f32", "f32_card_permuted", "bf16"):
+        log(f"[train] learner {k}, {steps} steps: " + json.dumps(res[k]))
+    # Limits.  The first step starts from the same weights: its gradients
+    # differ by the order of the sums alone (f32) or by bf16 rounding.
+    # Adam then divides each gradient by its own RMS, so an element whose
+    # gradient is near 0 moves by about lr * sign(g) on either side, and the
+    # later steps and updates diverge further (on the CPU alone, permuting
+    # the batch rows of a 128-batch gave a 0.9 % update difference and
+    # 0.27 % of elements off by 0.1 lr).  f32: gradients within 1e-3,
+    # losses within 1e-4, updates within 5 %, at most 2 % of elements off
+    # by 0.1 lr.  bf16 (8-bit mantissas in every conv and dense layer):
+    # gradients within 5 %, losses within 1e-2, updates within 30 %.  What
+    # catches a wrong learner is the first step's gradients (the same
+    # weights on both sides) and the losses of the later steps; the update
+    # limits catch a wrong optimizer.  The largest element difference is
+    # printed but not bounded: an element whose gradient flips sign lands
+    # about 2 lr a step away, the most two Adam runs can differ by.
+    limits = {"f32": {"grad_rel_err": 1e-3, "loss_rel_err": 1e-4,
+                      "update_rel_err": 0.05, "param_share_off_0.1lr": 0.02},
+              "bf16": {"grad_rel_err": 0.05, "loss_rel_err": 1e-2,
+                       "update_rel_err": 0.3}}
+    log("[train] limits: " + json.dumps(limits))
+    for k, lim in limits.items():
+        over = {m: res[k][m] for m, v in lim.items() if not res[k][m] <= v}
+        if over:
+            raise AssertionError(f"{k} learner on the card disagrees with the "
+                                 f"CPU beyond the limits: {over}")
+
+    torch.cuda.reset_peak_memory_stats()
+    _, _, losses, times, _ = _learner_run(model_path, env, batch, cfg, "cuda", 30)
+    res["learner"] = {
+        "batch": B, "steps": 30, "loss_first": losses[0], "loss_last": losses[-1],
+        "train_steps_per_s": (len(times) - 1) / sum(times[1:]),
+        "first_step_s": times[0],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    log("[train] learner on the card: " + json.dumps(res["learner"]))
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall over 30 steps: {losses}")
+
+    # The Pipeline, int8 executor, from the flagship weights.
+    flagship, meta = load_model(model_path, env.observation_shape, device="cuda")
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        pcfg = PipelineConfig(
+            board_size=15, model=flagship.cfg,
+            selfplay=SelfPlayConfig(
+                mcts=MCTSConfig(num_simulations=32, wave_size=16, max_children=32),
+                max_moves=64, recycle=True),
+            learner=cfg, iterations=2, games_per_iteration=256,
+            train_steps_per_iteration=8, train_batch_size=B,
+            replay_capacity=100_000, min_replay_before_training=1,
+            checkpoint_dir=ckpt_dir, checkpoint_every=1, inference="int8")
+        mcts = pcfg.selfplay.mcts
+        log("[train] pipeline depth: " + json.dumps({
+            "games_per_iteration": pcfg.games_per_iteration,
+            "simulations": mcts.num_simulations, "wave": mcts.wave_size,
+            "max_moves": pcfg.selfplay.max_moves,
+            "train_steps_per_iteration": pcfg.train_steps_per_iteration,
+            "train_batch_size": pcfg.train_batch_size,
+            "iterations": pcfg.iterations, "recycle": pcfg.selfplay.recycle,
+            "inference": pcfg.inference}))
+        pipe = Pipeline(pcfg)
+        pipe.state.module.load_state_dict(flagship.state_dict())
+        start = {k: v.clone() for k, v in pipe.state.module.state_dict().items()}
+        torch.cuda.reset_peak_memory_stats()
+        entries, trees = [], []
+        # The second iteration (the refreshed evaluator) runs with its
+        # kernel calls recorded; the first runs as it is, so its actor time
+        # holds no recording.
+        recorded = _KernelCalls()
+        for it in range(2):
+            gather_rows.launches = 0
+            s8_mm.launches = 0
+            with recorded if it == 1 else contextlib.nullcontext():
+                entry = pipe.run_iteration(it)
+            entry["launches"] = {"gather_rows": gather_rows.launches,
+                                 "s8_mm": s8_mm.launches}
+            entry["calls_recorded"] = it == 1
+            pipe.save_checkpoint(it)
+            entries.append(entry)
+            trees.append(pipe.eval_tree)
+            log(f"[train] pipeline iteration {it}: " + json.dumps(entry))
+        pipe.save_history()
+        # The kernels at the Pipeline's own shapes, after its counts were
+        # read.  TF32 off: the plain s8 product is an f32 matmul, exact only
+        # in full f32 (K <= 1024 terms of at most 128**2).
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            held = _hold_recorded(recorded.cases)
+            obs = replay.sample(pipe.buffer, env,
+                                torch.Generator(device="cuda").manual_seed(9),
+                                256, False).obs
+            with torch.no_grad():
+                l_k, v_k = pipe.evaluate(obs)
+                quant.s8_mm = s8_mm_plain
+                try:
+                    l_p, v_p = pipe.evaluate(obs)
+                finally:
+                    quant.s8_mm = s8_mm
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        for r in held:
+            log("[train] pipeline kernel vs plain: " + json.dumps(r))
+        eval_equal = torch.equal(l_k, l_p) and torch.equal(v_k, v_p)
+        log("[train] refreshed int8 evaluator vs plain s8, 256 replay "
+            f"observations: bit_equal={eval_equal}")
+        bad = [r for r in held if not r["bit_equal"]]
+        kinds = {r["kernel"] for r in held}
+        if bad or not eval_equal:
+            raise AssertionError(f"kernels at the Pipeline's shapes disagree "
+                                 f"with their plain versions: {bad}, "
+                                 f"evaluator bit_equal={eval_equal}")
+        if "s8_mm" not in kinds or not kinds & {"gather_rows", "gather_rows_many"}:
+            raise AssertionError(f"no s8_mm or gather call recorded: {kinds}")
+        for e in entries:
+            if e["launches"]["gather_rows"] <= 0 or e["launches"]["s8_mm"] <= 0:
+                raise AssertionError(f"the actor launched no gather_rows or s8_mm: {e}")
+            if not (e["replay_size"] > 0 and np.isfinite(e["loss"])
+                    and np.isfinite(e["grad_norm"])):
+                raise AssertionError(f"pipeline iteration did not train: {e}")
+        moved = [k for k, v in pipe.state.module.state_dict().items()
+                 if not torch.equal(v, start[k])]
+        if not moved:
+            raise AssertionError("the learner's weights did not change")
+        before, after = _named_tensors(trees[0]), _named_tensors(trees[1])
+        refreshed = [k for k in before if not torch.equal(before[k], after[k])]
+        if not refreshed:
+            raise AssertionError("the quantised parameters were not refreshed")
+        fresh = Pipeline(pcfg)
+        restored = fresh.restore_checkpoint()
+        sd_a, sd_b = fresh.state.module.state_dict(), pipe.state.module.state_dict()
+        opt_a = fresh.state.optimizer.state_dict()["state"]
+        opt_b = pipe.state.optimizer.state_dict()["state"]
+        same = (restored == 1 and fresh.state.step == pipe.state.step
+                and all(torch.equal(sd_a[k], sd_b[k]) for k in sd_b)
+                and all(torch.equal(opt_a[i][n], opt_b[i][n])
+                        for i in opt_b for n in opt_b[i])
+                and torch.equal(fresh.generator.get_state(), pipe.generator.get_state()))
+        history = os.path.exists(os.path.join(ckpt_dir, "history.json"))
+        res["pipeline"] = {
+            "iterations": entries, "params_changed": len(moved),
+            "quantised_refreshed": f"{len(refreshed)} of {len(before)} tensors", "checkpoint_bit_equal": same,
+            "checkpoints": pipe.checkpoints(), "history_json": history,
+        }
+        log("[train] pipeline: " + json.dumps({k: v for k, v in res["pipeline"].items()
+                                               if k != "iterations"}))
+        if not (same and history):
+            raise AssertionError(f"checkpoint or history failed: {res['pipeline']}")
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"[train] phase wall time {res['wall_s']:.1f} s")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -668,6 +1021,7 @@ def main() -> int:
                     moves=2)
     probe_launches = phase_probe_path()
     phase_card_vs_cpu()
+    phase_train(env, model_path)
 
     head = rows[0]  # child stats: the most rows of any gather per level
     kernels = [{

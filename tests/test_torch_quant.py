@@ -395,13 +395,13 @@ def test_production_eval_fn_uses_pinned_config(nets, monkeypatch):
     monkeypatch.setattr(production, "CALIB_GAMES", 4)
     monkeypatch.setattr(production, "INT8_CHUNK", 4)
     seen = {}
-    orig = tq.make_int8_eval_fn
+    orig = tq.make_int8_eval_params
 
     def spy(model, **kw):
         seen.update(kw)
         return orig(model, **kw)
 
-    monkeypatch.setattr(tq, "make_int8_eval_fn", spy)
+    monkeypatch.setattr(tq, "make_int8_eval_params", spy)
     env = GomokuEnv(board_size=N)
     ev, calib = tq.make_production_eval_fn(
         env, nets["model"], device="cpu", generator=torch.Generator().manual_seed(1))
