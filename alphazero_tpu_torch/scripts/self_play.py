@@ -33,7 +33,7 @@ def main(argv=None):
     p.add_argument("--temperature-drop", type=int, default=30)
     p.add_argument("--wave", type=int, default=16,
                    help="virtual-loss descents per wave sharing one NN batch "
-                   "(MCTSConfig.wave_size; the W=1 path is not ported yet)")
+                   "(MCTSConfig.wave_size; 1 = the sequential search)")
     p.add_argument("--inference", default="folded", choices=["folded", "int8"],
                    help="executor for --model: BN-folded bf16, or the "
                    "production int8 trunk (production.py)")

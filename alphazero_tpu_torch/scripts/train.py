@@ -7,9 +7,9 @@ with checkpoints and ``history.json`` under ``--checkpoint-dir``.
     python -m alphazero_tpu_torch.scripts.train --board-size 15 \\
         --iterations 50 --games-per-iteration 256 --simulations 800
 
-Not ported yet, and refused: Go and chess, ``--model randwire``, and
-``--config`` with a shipped ``config/*.json`` (those files leave
-``wave_size`` at 1, whose sequential search is not ported).
+    python -m alphazero_tpu_torch.scripts.train --config config/gomoku_15x15.json
+
+Not ported yet, and refused: Go and chess, and ``--model randwire``.
 """
 from __future__ import annotations
 

@@ -3,10 +3,11 @@
 B games are one batch axis: every move is a batched wave search over all
 lanes followed by one lockstep env step.  With ``recycle`` a lane whose game
 ends restarts at once from a fresh game, and ``MoveRecord.ended_winner``
-keeps the segment boundary for ``value_targets_recycled``.
+keeps the segment boundary for ``value_targets_recycled``.  With
+``MCTSConfig.tree_reuse`` each lane's tree is kept between moves and
+re-rooted on the played action (``HostReuseSearch``).
 
-Not ported yet: tree reuse between moves (``HostReuseSearch``) and the
-scan-driven ``play_games``/``move_once``.
+Not ported yet: the scan-driven ``play_games``/``move_once``.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 
 from alphazero_tpu_torch.core.types import stack_states, where_lanes
 from alphazero_tpu_torch.mcts.search import (
-    EvalFn, MCTSConfig, make_host_search, select_action,
+    EvalFn, HostReuseSearch, MCTSConfig, make_host_search, select_action,
 )
 
 
@@ -131,11 +132,17 @@ def make_host_actor(env, eval_fn: EvalFn, config: SelfPlayConfig,
                     batch_size: int, device="cuda", record_states: bool = False):
     """Returns ``(step, init_states)``; ``step(states, generator=None)``
     yields ``(new_states, MoveRecord)`` for one move of every lane.  The
-    last move's ``SearchOutput`` stays readable as ``step.last_search``."""
-    if config.mcts.tree_reuse:
-        raise NotImplementedError(
-            "tree_reuse (HostReuseSearch) is not yet ported to alphazero_tpu_torch")
-    run_search = make_host_search(env, eval_fn, config.mcts)
+    last move's ``SearchOutput`` stays readable as ``step.last_search``.
+
+    With ``config.mcts.tree_reuse`` the search keeps each game's tree
+    between moves (``step.search``, a ``HostReuseSearch``, told each played
+    action): call ``step.reset()`` before feeding ``step`` root states
+    unrelated to the previous move's games."""
+    reuse = config.mcts.tree_reuse
+    if reuse:
+        run_search = HostReuseSearch(env, eval_fn, config.mcts)
+    else:
+        run_search = make_host_search(env, eval_fn, config.mcts)
 
     @torch.no_grad()
     def step(states, generator: torch.Generator | None = None):
@@ -147,8 +154,14 @@ def make_host_actor(env, eval_fn: EvalFn, config: SelfPlayConfig,
         counts = out.visit_counts
         policy = counts / counts.sum(-1, keepdim=True).clamp(min=1)
         step.last_search = out
-        return _step_and_record(env, states, action, policy.float(),
-                                out.root_value, active, config, record_states)
+        new_states, record = _step_and_record(
+            env, states, action, policy.float(), out.root_value, active,
+            config, record_states)
+        if reuse:
+            run_search.notify_action(record.action)
+        return new_states, record
 
     step.last_search = None
+    step.reset = run_search.reset if reuse else (lambda: None)
+    step.search = run_search
     return step, env.init(batch_size, device=device)

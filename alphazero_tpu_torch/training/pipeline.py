@@ -30,7 +30,6 @@ import torch
 
 from alphazero_tpu_torch import production
 from alphazero_tpu_torch.core import registry
-from alphazero_tpu_torch.mcts.search import check_ported
 from alphazero_tpu_torch.models import quant
 from alphazero_tpu_torch.models.resnet import (
     AZResNet, ResNetConfig, make_inference_eval_fn,
@@ -87,7 +86,6 @@ class Pipeline:
     """Actor/learner alternation on ``device`` (default ``cuda``)."""
 
     def __init__(self, config: PipelineConfig, device="cuda"):
-        check_ported(config.selfplay.mcts)
         if config.model_kind != "resnet":
             raise NotImplementedError(
                 f"model_kind={config.model_kind!r} is not ported yet")
@@ -157,7 +155,10 @@ class Pipeline:
 
     def _run_actor(self) -> SelfPlayOutput:
         """Host-driven move loop from fresh games; breaks (at 16-move
-        granularity) once every lane is finished."""
+        granularity) once every lane is finished.  A kept search tree
+        (``tree_reuse``) is dropped first: it belongs to the last run's
+        games (the JAX pipeline re-roots it onto the fresh boards)."""
+        self._host_step.reset()
         states = self._host_init
         recs = []
         for t in range(self.config.selfplay.max_moves):

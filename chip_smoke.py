@@ -35,17 +35,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   5. main path at full width with the production executor: the flagship
      6x64 SE-ResNet bundle, rollout calibration on the card, int8 trunk,
      driving make_host_actor at B=1024, 800 simulations, W=16, K=32,
-     recycle on, for 3 moves (1 warm-up, 2 timed); checks root visit sums,
-     action legality, and that gather_rows and s8_mm were launched, s8_mm
-     exactly as often as the chunk count predicts; prints gather launches a
-     move;
+     recycle on, for 2 moves (1 warm-up, 1 timed; cut from 3, printed);
+     checks root visit sums, action legality, and that gather_rows and
+     s8_mm were launched, s8_mm exactly as often as the chunk count
+     predicts; prints gather launches a move;
+     [w1_main]: the sequential search (W=1) at the shipped config's width,
+     B=256, 800 simulations, int8 executor, 2 moves: the same checks, s8_mm
+     exactly 13 x (1 + 800) launches a move, eval and search ms a
+     simulation; [reuse_base] and [reuse_main]: 3 greedy moves at B=1024,
+     W=16, 800 simulations without and with tree reuse (topup): fresh
+     simulations a move (800, then fewer), every live root at 800 visits
+     or more, moves/s of both and [main]'s; every main path records the
+     kernel calls of its warm-up move, and [reuse_main] of one more
+     untimed move that re-roots, and holds each distinct signature against
+     its plain version, bit for bit;
   6. the earlier main path (BN-folded bf16 net), shallower: 192 simulations,
      2 moves, same checks;
   7. the probe entry point scripts/profile_s8_dots.main, whose path runs
      s8_mm_multi, chained_dot and tiled_mm: launch counts;
   8. card vs CPU search: B=64, 256 simulations, W=16, zero-value uniform
      evaluator, no noise, greedy, on 15x15 openings and on crowded 7x7
-     positions (deeper trees): visit counts must be equal;
+     positions (deeper trees): visit counts must be equal; [search_options]:
+     the same roots, 64 simulations, an evaluator with integer-derived
+     values, card against CPU for W=1, parity mode (K = A), TD(lambda 0.5),
+     a 256-entry table at W=1 and W=16 (128 simulations), and tree reuse
+     over 3 moves at W=1 and W=16 under both budgets (the table and reuse
+     cases with a prior on about 6 cells, so that positions recur; each
+     table case must hit 64 times or more): equal visit counts, table hits
+     and stores and fresh simulations; then parity mode on the card at the
+     reference engine's seven dumped positions (sorted visit vectors
+     equal); the card's kernel calls of every case held against their
+     plain versions;
   9. training at the flagship width (6x64 SE-ResNet, 15x15): the learner
      on one fixed batch of 1024, 3 AdamW steps on the card against the
      same on the CPU, in float32 (TF32 off) and in bf16 compute, with the
@@ -56,6 +76,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      replay filled, finite losses, weights and refreshed quantised
      parameters changed, a checkpoint restored bit for bit, history.json
      written; actor and learner seconds, moves/s, peak device memory;
+     [train_config]: scripts/train.py --config on config/gomoku_15x15.json
+     cut in depth only (printed): 2 iterations of 256 games, W=1, its
+     GroupNorm net; every distinct gather call held against its plain
+     version, checkpoints and finite losses;
  10. summary: one JSON line of kernels, then the final status line.
 
 gather_rows times are taken with warm L2 (the search re-reads the same
@@ -520,23 +544,39 @@ def phase_net_int8(env, model, calib) -> dict:
 
 def _s8_launches_expected(batches, convs: int, chunk: int) -> int:
     """s8_mm launches of the evaluator for the batch sizes it was given:
-    one per conv per chunk."""
+    one per conv per chunk (a batch of at most one chunk is one chunk, as
+    the W=1 path's 256-position evaluations are)."""
     return sum(convs * (n // chunk if n > chunk and n % chunk == 0 else 1)
                for n in batches)
 
 
 def phase_main_path(env, eval_fn, label: str, sims: int, moves: int,
-                    s8_convs: int = 0) -> dict:
-    """Self-play moves at full width (B=1024, W=16, K=32, recycle) with
-    ``eval_fn``; the first move is the warm-up.  ``s8_convs``: s8_mm
-    launches the evaluator makes per chunk (0: none expected)."""
+                    s8_convs: int = 0, B: int = 1024, W: int = 16,
+                    reuse: bool = False, greedy: bool = False,
+                    tag: str = "main") -> dict:
+    """Self-play moves at full width (K=32) with ``eval_fn``: B lanes, W
+    walkers a wave; recycling and moves sampled at temperature 1, or with
+    ``greedy`` greedy moves and no recycling; with ``reuse`` tree reuse
+    (topup budget), always greedy.  The first move is the warm-up.
+    ``s8_convs``: s8_mm launches the evaluator makes per chunk (0: none
+    expected).
+
+    The warm-up move runs with its kernel calls recorded, and with ``reuse``
+    one untimed move after the timed ones too (a move that re-roots); every
+    recorded signature is then held against its plain version.
+
+    Reuse plays greedily, as self-play does after ``temperature_drop_move``
+    and the arena always: the topup budget is set by the least-visited
+    played child of all B lanes, and at temperature 1 some lane of 1024
+    nearly always samples a child of a few visits, so no move would save a
+    simulation."""
     from alphazero_tpu_torch import production
     from alphazero_tpu_torch.mcts.search import MCTSConfig
     from alphazero_tpu_torch.ops.gather_rows import gather_rows
     from alphazero_tpu_torch.ops.s8_mm import s8_mm
     from alphazero_tpu_torch.selfplay.actor import SelfPlayConfig, make_host_actor
 
-    B, W = 1024, 16
+    greedy = greedy or reuse
     batches = []
 
     def counted_eval(obs, to_play=None):
@@ -544,54 +584,95 @@ def phase_main_path(env, eval_fn, label: str, sims: int, moves: int,
         return eval_fn(obs, to_play)
 
     config = SelfPlayConfig(
-        mcts=MCTSConfig(num_simulations=sims, wave_size=W, max_children=32),
-        recycle=True)
+        mcts=MCTSConfig(num_simulations=sims, wave_size=W, max_children=32,
+                        tree_reuse=reuse, reuse_budget="topup"),
+        recycle=not greedy, temperature=0.0 if greedy else 1.0)
     step, states = make_host_actor(env, counted_eval, config, B, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    rec = _KernelCalls()
+
+    def play(states, move):
+        legal = env.legal_mask(states)
+        new_states, out = step(states, gen)
+        if reuse:
+            roots = step.last_search.tree.visits[:, 0]
+            if not bool((roots[out.active] >= sims).all()):
+                raise AssertionError(f"move {move}: root visits below {sims}: "
+                                     f"{int(roots[out.active].min())}")
+        else:
+            visits = step.last_search.visit_counts.sum(-1)
+            if not bool((visits[out.active] == sims).all()):
+                raise AssertionError(f"move {move}: root visits "
+                                     f"{visits.unique().tolist()}")
+        chosen_legal = legal.gather(1, out.action.long()[:, None])[:, 0]
+        if not bool(chosen_legal[out.active].all()):
+            raise AssertionError(f"move {move}: an illegal action was chosen")
+        return new_states
 
     gather_rows.launches = 0
     s8_mm.launches = 0
-    times = []
+    times, fresh, per_move = [], [], []
     for move in range(moves):
-        legal = env.legal_mask(states)
+        before = (gather_rows.launches, s8_mm.launches, len(batches))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        new_states, rec = step(states, gen)
+        with rec if move == 0 else contextlib.nullcontext():
+            new_states = play(states, move)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        visits = step.last_search.visit_counts.sum(-1)
-        if not bool((visits[rec.active] == sims).all()):
-            raise AssertionError(f"move {move}: root visits {visits.unique().tolist()}")
-        chosen_legal = legal.gather(1, rec.action.long()[:, None])[:, 0]
-        if not bool(chosen_legal[rec.active].all()):
-            raise AssertionError(f"move {move}: an illegal action was chosen")
+        per_move.append({"gather_rows": gather_rows.launches - before[0],
+                         "s8_mm": s8_mm.launches - before[1],
+                         "evaluations": len(batches) - before[2]})
+        if reuse:
+            fresh.append(step.search.last_fresh_sims)
         states = new_states
     launches = {"gather_rows": gather_rows.launches, "s8_mm": s8_mm.launches}
     gather_per_move = gather_rows.launches / moves
     if launches["gather_rows"] <= 0:
-        raise AssertionError("the main path launched no gather_rows kernel")
+        raise AssertionError(f"the {tag} path launched no gather_rows kernel")
     expected = _s8_launches_expected(batches, s8_convs, production.INT8_CHUNK)
     if launches["s8_mm"] != expected or (s8_convs and expected <= 0):
         raise AssertionError(f"s8_mm launches {launches['s8_mm']}, but the "
                              f"evaluated batches predict {expected}")
+    if reuse and not (fresh[0] == sims and max(fresh[1:]) < sims):
+        raise AssertionError(f"tree reuse saved no simulations: {fresh}")
+    if reuse:
+        with rec:
+            play(states, moves)
+        log(f"[{tag}] untimed move {moves + 1}, recorded: "
+            f"{step.search.last_fresh_sims} fresh simulations after a reroot")
+    _check_recorded(tag, rec)
 
     # One wave's evaluation alone, to split the move time.
     obs = env.observation(env.init(B * W, device="cuda"))
     eval_ms = cuda_ms(lambda: eval_fn(obs, None), reps=5)
-    waves = config.mcts.waves
     timed = times[1:]
+    move_s = sum(timed) / len(timed)
+    # Evaluations of B * W positions a timed move (the roots' one counted
+    # as a wave).
+    waves = 1 + (sum(fresh[1:]) / W / len(timed) if reuse else config.mcts.waves)
     res = {
         "inference": label, "B": B, "simulations": sims, "wave": W,
-        "moves": moves, "move_s": times,
+        "tree_reuse": reuse, "greedy": greedy, "moves": moves, "move_s": times,
         "timed_moves_per_s": len(timed) * B / sum(timed),
-        "launches": launches, "gather_launches_per_move": gather_per_move,
+        "launches": launches, "launches_per_move": per_move,
+        "gather_launches_per_move": gather_per_move,
         "s8_mm_launches_expected": expected,
         "eval_calls": len(batches),
         "eval_ms_per_wave": eval_ms,
-        "eval_share_est": eval_ms * (waves + 1) / 1e3 / (sum(timed) / len(timed)),
+        "eval_share_est": eval_ms * waves / 1e3 / move_s,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    log("[main] " + json.dumps(res))
+    if reuse:
+        res["fresh_sims_per_move"] = fresh
+    if W == 1:
+        # A simulation is one evaluation of B positions plus one descent,
+        # install and backprop: what is left of its share of the move.
+        sim_ms = move_s * 1e3 / (sims + 1)
+        res["ms_per_simulation"] = sim_ms
+        res["eval_ms_per_simulation"] = eval_ms
+        res["search_ms_per_simulation"] = sim_ms - eval_ms
+    log(f"[{tag}] " + json.dumps(res))
     return res
 
 
@@ -628,7 +709,9 @@ def phase_card_vs_cpu() -> list:
         run = make_host_search(env, make_uniform_eval_fn(env.num_actions), cfg)
         roots_cpu = _random_states(env, 64, plies, seed=2, device="cpu")
         roots_gpu = roots_cpu.map(lambda x: x.cuda())
-        gpu = run(roots_gpu)
+        rec = _KernelCalls()
+        with rec:
+            gpu = run(roots_gpu)
         cpu = run(roots_cpu)
         diff = int((gpu.visit_counts.cpu() != cpu.visit_counts).sum())
         same_action = bool(torch.equal(
@@ -640,8 +723,203 @@ def phase_card_vs_cpu() -> list:
         log("[card_vs_cpu] " + json.dumps(res))
         if diff or not same_action:
             raise AssertionError(f"card and CPU searches differ: {res}")
+        _check_recorded(f"card_vs_cpu {board}x{board}", rec, each=False)
         out.append(res)
     return out
+
+
+def _integer_value_eval(env, hot: int = 0):
+    """An evaluator whose value does not depend on the order of any sum: a
+    value from integer arithmetic on the stone planes (a multiple of 2**-13
+    in [-0.13, 0.13], so the search's f32 value sums are exact too), and
+    uniform logits.  The stub's value is a float sum that can round
+    otherwise on the card.  With ``hot`` > 0 only every ``hot``-th cell has
+    a nonzero prior while one is legal (logit 0 against -1e4, whose
+    exponent is exactly 0): the trees stay on a few cells and grow deep, so
+    positions recur by transposition."""
+    A = env.num_actions
+    weights, cold = {}, {}
+
+    def eval_fn(obs, to_play=None):
+        B, dev = obs.shape[0], obs.device
+        if dev not in weights:
+            cells = torch.arange(2 * A, device=dev, dtype=torch.int64)
+            weights[dev] = (cells * 2654435761 + 12345) % 1021
+            cold[dev] = (torch.arange(A, device=dev) % max(hot, 1) != 0) * -1e4
+        stones = obs[:, :2].reshape(B, 2 * A).to(torch.int64)
+        h = (stones * weights[dev]).sum(-1)
+        value = ((h * 40503) % 2001 - 1000).float() / 8192
+        logits = torch.zeros((B, A), device=dev) + (cold[dev] if hot else 0.0)
+        return logits, value
+
+    return eval_fn
+
+
+def phase_search_options() -> list:
+    """The search options of slice 7 on the card against the CPU, inside
+    the port, bit for bit: 64 lanes of 15x15 and of crowded 7x7 positions
+    (as [card_vs_cpu]), no noise; equal visit counts, table hits and
+    stores, and fresh simulations a move.  The table and reuse cases
+    evaluate with a prior on about 6 cells, so transpositions hit on most
+    lanes (each table case must hit at least 64 times, on at least half the
+    lanes) and reuse keeps deep subtrees.  Every kernel call of each case's
+    card run is recorded and held against its plain version."""
+    from alphazero_tpu_torch.core import registry
+    from alphazero_tpu_torch.mcts.search import HostReuseSearch, MCTSConfig, search
+
+    base = dict(num_simulations=64, max_children=32, dirichlet_epsilon=0.0)
+    cases = [
+        ("w1", dict(wave_size=1)),
+        ("parity", dict(wave_size=1, parity_mode=True)),  # K = A below
+        ("td_lambda_0.5", dict(wave_size=1, td_lambda=0.5)),
+        ("tt256_w1", dict(wave_size=1, tt_size=256, num_simulations=128)),
+        ("tt256_w16", dict(wave_size=16, tt_size=256, num_simulations=128)),
+    ]
+    reuse = [(f"reuse_{budget}_w{w}", dict(wave_size=w, tree_reuse=True,
+                                            reuse_cap=64, reuse_budget=budget))
+             for w in (1, 16) for budget in ("topup", "fixed")]
+    out = []
+    for board, plies in ((15, 24), (7, 40)):
+        env = registry.create_game("gomoku", board)
+        uniform = _integer_value_eval(env)
+        focused = _integer_value_eval(env, hot=env.num_actions // 6)
+        roots = {"cpu": _random_states(env, 64, plies, seed=3, device="cpu")}
+        roots["cuda"] = roots["cpu"].map(lambda x: x.cuda())
+        for name, kw in cases + reuse:
+            kw = dict(base, **kw)
+            if kw.get("parity_mode"):
+                kw["max_children"] = env.num_actions
+            cfg = MCTSConfig(**kw)
+            eval_fn = focused if cfg.tt_size or cfg.tree_reuse else uniform
+            runs, rec = {}, _KernelCalls()
+            t0 = time.perf_counter()
+            for dev in ("cuda", "cpu"):
+                with rec if dev == "cuda" else contextlib.nullcontext():
+                    if not cfg.tree_reuse:
+                        res = search(env, eval_fn, roots[dev], cfg)
+                        tt = res.tree.tt
+                        runs[dev] = [(res.visit_counts.cpu(),
+                                      None if tt is None else (tt.hits.cpu(), tt.stores.cpu()),
+                                      None)]
+                        continue
+                    hs, st, moves = HostReuseSearch(env, eval_fn, cfg), roots[dev], []
+                    for _ in range(3):
+                        res = hs(st)
+                        moves.append((res.visit_counts.cpu(), None, hs.last_fresh_sims))
+                        action = res.visit_counts.argmax(-1).int()
+                        hs.notify_action(action)
+                        st = env.step(st, action)
+                    runs[dev] = moves
+            equal = all(torch.equal(a[0], b[0]) and a[2] == b[2]
+                        and (a[1] is None or all(torch.equal(x, y)
+                                                 for x, y in zip(a[1], b[1])))
+                        for a, b in zip(runs["cuda"], runs["cpu"]))
+            row = {"board": board, "case": name, "equal": equal,
+                   "visits": int(runs["cpu"][-1][0].sum()),
+                   "s": round(time.perf_counter() - t0, 2)}
+            if runs["cpu"][0][1] is not None:
+                hits, stores = runs["cpu"][0][1]
+                row["tt_hits"], row["tt_stores"] = int(hits.sum()), int(stores.sum())
+                row["lanes_hit"] = int((hits > 0).sum())
+            if cfg.tree_reuse:
+                row["fresh_sims"] = [m[2] for m in runs["cpu"]]
+            log("[search_options] " + json.dumps(row))
+            if not equal:
+                raise AssertionError(f"card and CPU differ: {row}")
+            if cfg.tt_size and not (row["tt_hits"] >= 64 and row["lanes_hit"] >= 32):
+                raise AssertionError(f"too few table hits to test the hit path: {row}")
+            _check_recorded(f"search_options {board}x{board} {name}", rec, each=False)
+            out.append(row)
+    return out
+
+
+def phase_parity() -> list:
+    """Parity mode on the card at the seven positions of the reference
+    engine's dump: sorted visit vectors equal to the reference's."""
+    from alphazero_tpu_torch.core import registry
+    from alphazero_tpu_torch.mcts.search import MCTSConfig, search
+    from alphazero_tpu_torch.models.stub import make_uniform_eval_fn
+
+    env = registry.create_game("gomoku", 15)
+    path = os.path.join(ROOT, "tools", "parity", "reference_dump_gomoku15.json")
+    with open(path) as f:
+        cases = [json.loads(line) for line in f if line.strip()]
+    rows, rec = [], _KernelCalls()
+    for case in cases:
+        cfg = MCTSConfig(num_simulations=case["sims"], c_puct=1.5,
+                         dirichlet_epsilon=0.0, parity_mode=True,
+                         max_children=env.num_actions)
+        st = env.init(1, device="cuda")
+        for mv in case["position"]:
+            st = env.step(st, torch.tensor([mv], device="cuda"))
+        t0 = time.perf_counter()
+        with rec:
+            ours = search(env, make_uniform_eval_fn(env.num_actions), st,
+                          cfg).visit_counts[0].cpu().numpy()
+        ref = np.asarray(case["visits"])
+        rows.append({"plies": len(case["position"]), "sims": case["sims"],
+                     "equal": bool(np.array_equal(np.sort(ours), np.sort(ref))),
+                     "s": round(time.perf_counter() - t0, 2)})
+    log("[search_options] parity vs the reference engine: " + json.dumps(rows))
+    if not all(r["equal"] for r in rows):
+        raise AssertionError(f"parity mode differs from the reference engine: {rows}")
+    _check_recorded("search_options parity", rec, each=False)
+    return rows
+
+
+def phase_train_config() -> dict:
+    """``scripts/train.py --config`` on a copy of config/gomoku_15x15.json
+    cut in depth only (printed): the shipped width (256 games, the 6x64
+    GroupNorm net, its raw inference path) and W=1.  Every distinct gather
+    and s8_mm call of the run is held against its plain version."""
+    import tempfile
+
+    from alphazero_tpu_torch.ops.gather_rows import gather_rows
+    from alphazero_tpu_torch.ops.s8_mm import s8_mm
+    from alphazero_tpu_torch.scripts import train as train_cli
+
+    with open(os.path.join(ROOT, "config", "gomoku_15x15.json")) as f:
+        cfg = json.load(f)
+    cuts = {"iterations": 2, "selfplay.max_moves": 8,
+            "selfplay.mcts.num_simulations": 64,
+            "train_steps_per_iteration": 4, "min_replay_before_training": 1,
+            "checkpoint_every": 1}
+    with tempfile.TemporaryDirectory() as tmp:
+        cuts["checkpoint_dir"] = os.path.join(tmp, "run")
+        for key, v in cuts.items():
+            *path, last = key.split(".")
+            node = cfg
+            for k in path:
+                node = node[k]
+            node[last] = v
+        log("[train_config] cuts of config/gomoku_15x15.json: " + json.dumps(
+            {k: v for k, v in cuts.items() if k != "checkpoint_dir"}))
+        cfg_path = os.path.join(tmp, "gomoku_15x15.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        gather_rows.launches = 0
+        s8_mm.launches = 0
+        t0 = time.perf_counter()
+        with _KernelCalls() as recorded:
+            train_cli.main(["--config", cfg_path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"gather_rows": gather_rows.launches, "s8_mm": s8_mm.launches}
+        with open(os.path.join(cuts["checkpoint_dir"], "history.json")) as f:
+            history = json.load(f)
+        files = sorted(os.listdir(cuts["checkpoint_dir"]))
+    held = _check_recorded("train_config", recorded)
+    for e in history:
+        log("[train_config] iteration: " + json.dumps(e))
+    res = {"wall_s": wall, "launches": launches, "files": files,
+           "signatures": len(held)}
+    log("[train_config] " + json.dumps(res))
+    if launches["gather_rows"] <= 0:
+        raise AssertionError("the shipped config's actor launched no gather_rows")
+    if not (len(history) == 2 and all(np.isfinite(e["loss"]) for e in history)
+            and "ckpt_1.pt" in files):
+        raise AssertionError(f"the shipped config did not train: {history}, {files}")
+    return res
 
 
 def _named_tensors(tree, prefix="") -> dict:
@@ -752,7 +1030,8 @@ class _KernelCalls:
 def _hold_recorded(cases) -> list:
     """Each recorded call again through its kernel and its plain version on
     the same tensors: bit for bit (the s8 products are exact; a gather
-    moves bytes)."""
+    moves bytes).  TF32 off: the plain s8 product is an f32 matmul, exact
+    only in full f32 (K <= 1024 terms of at most 128**2)."""
     from alphazero_tpu_torch.ops.gather_rows import (
         gather_rows, gather_rows_many, gather_rows_many_plain, gather_rows_plain)
     from alphazero_tpu_torch.ops.s8_mm import s8_mm, s8_mm_plain
@@ -760,17 +1039,43 @@ def _hold_recorded(cases) -> list:
     fns = {"s8_mm": (s8_mm, s8_mm_plain), "gather_rows": (gather_rows, gather_rows_plain),
            "gather_rows_many": (gather_rows_many, gather_rows_many_plain)}
     rows = []
-    for (name, sig), (args, calls) in cases.items():
-        kern, plain = fns[name]
-        out, ref = kern(*args), plain(*args)
-        outs = out if isinstance(out, tuple) else (out,)
-        refs = ref if isinstance(ref, tuple) else (ref,)
-        equal = all(o.dtype == r.dtype and o.shape == r.shape
-                    and torch.equal(o.view(torch.uint8), r.view(torch.uint8))
-                    for o, r in zip(outs, refs))
-        rows.append({"kernel": name, "inputs": sig, "calls": calls, "bit_equal": equal})
-    torch.cuda.synchronize()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for (name, sig), (args, calls) in cases.items():
+            kern, plain = fns[name]
+            out, ref = kern(*args), plain(*args)
+            outs = out if isinstance(out, tuple) else (out,)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            equal = all(o.dtype == r.dtype and o.shape == r.shape
+                        and torch.equal(o.view(torch.uint8), r.view(torch.uint8))
+                        for o, r in zip(outs, refs))
+            rows.append({"kernel": name, "inputs": sig, "calls": calls,
+                         "bit_equal": equal})
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
     return rows
+
+
+def _check_recorded(tag: str, rec: "_KernelCalls", each: bool = True) -> list:
+    """Holds every call ``rec`` recorded against its plain version, prints
+    each signature (or, with ``each`` false, one summary line), and fails
+    unless there was at least one and all are bit-equal."""
+    held = _hold_recorded(rec.cases)
+    if each:
+        for r in held:
+            log(f"[{tag}] kernel vs plain: " + json.dumps(r))
+    else:
+        log(f"[{tag}] kernel vs plain: " + json.dumps({
+            "signatures": len(held), "calls": sum(r["calls"] for r in held),
+            "kernels": sorted({r["kernel"] for r in held}),
+            "bit_equal": all(r["bit_equal"] for r in held)}))
+    bad = [r for r in held if not r["bit_equal"]]
+    if bad or not held:
+        raise AssertionError(f"[{tag}] kernels disagree with their plain "
+                             f"versions at the path's shapes: {bad or 'no calls'}")
+    return held
 
 
 def phase_train(env, model_path) -> dict:
@@ -993,10 +1298,18 @@ def main() -> int:
     from alphazero_tpu_torch.core import registry
 
     t_start = time.perf_counter()
+    walls = {}
+
+    def timed(phase, fn, /, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        walls[phase] = round(time.perf_counter() - t0, 1)
+        return out
+
     name, _ = phase_device()
-    phase_build()
-    rows = phase_kernels()
-    prod_rows = phase_products()
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels)
+    prod_rows = timed("products", phase_products)
     env = registry.create_game("gomoku", 15)
     model_path = os.path.join(ROOT, "models_zoo", "flagship_gomoku15")
     phase_net(env, model_path)
@@ -1015,13 +1328,38 @@ def main() -> int:
         f"and quantised in {time.perf_counter() - t0:.2f} s")
     phase_net_int8(env, model, calib)
     convs = 1 + 2 * model.cfg.num_blocks  # bf16 heads: trunk convs only
-    main_res = phase_main_path(env, int8_eval, "int8", sims=800, moves=3,
-                               s8_convs=convs)
-    phase_main_path(env, make_inference_eval_fn(model), "folded", sims=192,
-                    moves=2)
-    probe_launches = phase_probe_path()
-    phase_card_vs_cpu()
-    phase_train(env, model_path)
+    # Cut to keep the script near 300 s: [main] plays 2 moves (was 3), one
+    # of them timed.
+    log("[main] depth cut: 2 moves (was 3), the second timed")
+    main_res = timed("main", phase_main_path, env, int8_eval, "int8",
+                     sims=800, moves=2, s8_convs=convs)
+    # The sequential path at the shipped config's width (256 games), and
+    # tree reuse at bench.py's reuse shape, against the same greedy moves
+    # without reuse.
+    w1_res = timed("w1_main", phase_main_path, env, int8_eval, "int8",
+                   sims=800, moves=2, s8_convs=convs, B=256, W=1, tag="w1_main")
+    if w1_res["launches"]["s8_mm"] != convs * (1 + 800) * 2:
+        raise AssertionError(f"[w1_main] s8_mm launches {w1_res['launches']}, "
+                             f"not {convs} x (1 + 800) a move")
+    base_res = timed("reuse_base", phase_main_path, env, int8_eval, "int8",
+                     sims=800, moves=3, s8_convs=convs, greedy=True,
+                     tag="reuse_base")
+    reuse_res = timed("reuse_main", phase_main_path, env, int8_eval, "int8",
+                      sims=800, moves=3, s8_convs=convs, reuse=True,
+                      tag="reuse_main")
+    log("[reuse_main] timed moves/s (moves 2-3) with reuse "
+        f"{reuse_res['timed_moves_per_s']:.2f} against "
+        f"{base_res['timed_moves_per_s']:.2f} for the same greedy moves without "
+        f"([reuse_base]), {main_res['timed_moves_per_s']:.2f} at temperature 1 "
+        "with recycling ([main]); this run")
+    timed("main_folded", phase_main_path, env, make_inference_eval_fn(model),
+          "folded", sims=192, moves=2)
+    probe_launches = timed("probe_path", phase_probe_path)
+    timed("card_vs_cpu", phase_card_vs_cpu)
+    timed("search_options", phase_search_options)
+    timed("parity", phase_parity)
+    timed("train", phase_train, env, model_path)
+    timed("train_config", phase_train_config)
 
     head = rows[0]  # child stats: the most rows of any gather per level
     kernels = [{
@@ -1065,6 +1403,7 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+    log("[timing] phase wall seconds: " + json.dumps(walls))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

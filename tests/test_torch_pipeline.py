@@ -219,15 +219,31 @@ def test_shipped_configs_load():
             "go", "chess")
 
 
-def test_train_cli_refuses_shipped_config_on_wave_1():
-    with pytest.raises(NotImplementedError, match="wave_size=1"):
-        train_cli.main(["--config", os.path.join(REPO, "config", "gomoku_15x15.json"),
-                        "--device", "cpu"])
+def test_train_cli_runs_shipped_config_cut_to_depth(tmp_path):
+    """``--config config/gomoku_15x15.json`` (W=1, GroupNorm 6x64 net) for
+    one iteration.  Cut: iterations, moves, simulations, train steps and
+    the replay threshold (depth), and for the CPU's sake the games, the
+    train batch and the replay capacity; the net's width is the file's."""
+    with open(os.path.join(REPO, "config", "gomoku_15x15.json")) as f:
+        cfg = json.load(f)
+    cfg.update(iterations=1, games_per_iteration=4, train_steps_per_iteration=1,
+               train_batch_size=16, replay_capacity=1000,
+               min_replay_before_training=1, checkpoint_every=1,
+               checkpoint_dir=str(tmp_path / "run"))
+    cfg["selfplay"]["max_moves"] = 2
+    cfg["selfplay"]["mcts"]["num_simulations"] = 4
+    path = tmp_path / "gomoku_15x15_cut.json"
+    path.write_text(json.dumps(cfg))
+    train_cli.main(["--config", str(path), "--device", "cpu"])
+    assert sorted(os.listdir(tmp_path / "run")) == ["ckpt_0.pt", "history.json"]
+    with open(tmp_path / "run" / "history.json") as f:
+        (entry,) = json.load(f)
+    assert entry["moves"] == 8 and np.isfinite(entry["loss"])
 
 
 @pytest.mark.parametrize("argv", [["--game", "go", "--board-size", "9"],
                                   ["--model", "randwire"],
-                                  ["--wave", "1"]])
+                                  ["--game", "chess"]])
 def test_train_cli_refuses_unported_paths(argv, tmp_path):
     with pytest.raises(NotImplementedError):
         train_cli.main(argv + ["--device", "cpu", "--checkpoint-dir", str(tmp_path)])
@@ -245,6 +261,39 @@ def test_train_cli_runs_on_cpu(tmp_path):
         history = json.load(f)
     assert len(history) == 2 and "loss" in history[0]
     assert sorted(os.listdir(ckpt)) == ["ckpt_0.pt", "ckpt_1.pt", "history.json"]
+
+
+def test_pipeline_reuse_actor_starts_each_iteration_fresh(tmp_path):
+    """With tree reuse, each actor run drops the kept tree before its first
+    move: the last run's tree belongs to other games."""
+    cfg = tiny_config(tmp_path, selfplay=SelfPlayConfig(
+        mcts=MCTSConfig(num_simulations=8, tree_reuse=True, reuse_cap=8),
+        max_moves=3), games_per_iteration=4, min_replay_before_training=1)
+    pipe = Pipeline(cfg, device="cpu")
+    step, kept = pipe._host_step, []
+    reset = step.reset
+
+    def recording_reset():
+        kept.append(step.search._tree is not None)
+        reset()
+        assert step.search._tree is None
+
+    step.reset = recording_reset
+    pipe.run(2)
+    assert kept == [False, True]
+    assert step.search.last_fresh_sims <= 8
+
+
+def test_train_cli_wave_1_on_cpu(tmp_path):
+    ckpt = tmp_path / "run"
+    train_cli.main(["--device", "cpu", "--board-size", "5", "--blocks", "1",
+                    "--channels", "16", "--iterations", "1",
+                    "--games-per-iteration", "4", "--simulations", "6",
+                    "--wave", "1", "--max-moves", "4", "--train-steps", "1",
+                    "--train-batch-size", "16", "--min-replay", "1",
+                    "--inference", "folded", "--checkpoint-every", "1",
+                    "--checkpoint-dir", str(ckpt)])
+    assert sorted(os.listdir(ckpt)) == ["ckpt_0.pt", "history.json"]
 
 
 def test_jax_and_port_default_configs_agree():

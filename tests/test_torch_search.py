@@ -1,5 +1,6 @@
 """The port's wave search against JAX ``make_host_search``: exact root visit
-counts and chosen actions.
+counts and chosen actions.  Its input helpers (``roots``, ``evaluators``,
+``peaked_evaluators``) serve the port's other search tests too.
 
 Settings where the two must agree exactly: the uniform evaluator with zero
 value, no Dirichlet noise (epsilon 0), greedy selection (T 0), and at most
@@ -25,37 +26,68 @@ N = 7
 B = 8
 
 
-def _non_ending_moves(tenv, tst):
-    """bool [B, A]: legal moves that do not end the game."""
-    A = N * N
-    rep = tst.map(lambda x: x.repeat_interleave(A, 0))
-    nxt = tenv.step(rep, torch.arange(A).repeat(B))
-    return tenv.legal_mask(tst) & ~nxt.terminal.reshape(B, A)
-
-
-def _roots(seed: int, plies: int):
-    """Identical non-terminal root positions in both envs: numpy-chosen
-    random moves that do not end the game, lane b playing ``plies + b % 4``
-    of them (late positions leave few legal moves, so the trees grow
-    deep)."""
-    jenv, tenv = JaxGomoku(board_size=N), GomokuEnv(board_size=N)
+def roots(n: int, B: int, seed: int, plies: int):
+    """(jax env, jax states, torch env, torch states): the same positions,
+    lane b after ``plies + b % 4`` numpy-chosen moves that do not end the
+    game (late positions leave few legal moves, so trees grow deep)."""
+    jenv, tenv = JaxGomoku(board_size=n), GomokuEnv(board_size=n)
+    A = n * n
     rng = np.random.RandomState(seed)
     jst = jax.vmap(lambda _: jenv.init())(jnp.arange(B))
     tst = tenv.init(B, device="cpu")
     jstep = jax.jit(jax.vmap(jenv.step))
     for ply in range(plies + 3):
-        ok = _non_ending_moves(tenv, tst).numpy()
+        rep = tst.map(lambda x: x.repeat_interleave(A, 0))
+        ends = tenv.step(rep, torch.arange(A).repeat(B)).terminal.reshape(B, A)
+        ok = (tenv.legal_mask(tst) & ~ends).numpy()
         acts = np.array([rng.choice(np.flatnonzero(ok[b])) for b in range(B)])
         live = np.array([ply < plies + b % 4 for b in range(B)])
-        jlive = jnp.asarray(live)
         nxt = jstep(jst, jnp.asarray(acts, jnp.int32))
         jst = jax.tree_util.tree_map(
-            lambda n_, o: jnp.where(jlive.reshape((-1,) + (1,) * (o.ndim - 1)),
-                                    n_, o), nxt, jst)
+            lambda n_, o: jnp.where(
+                jnp.asarray(live).reshape((-1,) + (1,) * (o.ndim - 1)), n_, o),
+            nxt, jst)
         tst = where_lanes(torch.from_numpy(live),
                           tenv.step(tst, torch.from_numpy(acts)), tst)
     assert not bool(tst.terminal.any())
     return jenv, jst, tenv, tst
+
+
+def evaluators(A: int, value_noise: float = 0.0, bf16_value: bool = False):
+    """(jax eval_fn, torch eval_fn): the uniform stubs.  ``bf16_value``
+    rounds the value to bf16 on both sides.  XLA keeps or drops the JAX
+    stub's last bf16 rounding depending on what consumes the value (the
+    transposition table's contractions keep it, the backprop drops it), so
+    a search with a table compares equal only with the rounding made
+    explicit (``reduce_precision``, which XLA never removes)."""
+    jfn, tfn = jax_uniform(A, value_noise), make_uniform_eval_fn(A, value_noise)
+    if not bf16_value:
+        return jfn, tfn
+
+    def jev(obs, to_play=None):
+        logits, value = jfn(obs, to_play)
+        return logits, jax.lax.reduce_precision(value.astype(jnp.float32), 8, 7)
+
+    def tev(obs, to_play=None):
+        logits, value = tfn(obs, to_play)
+        return logits, value.to(torch.bfloat16).float()
+
+    return jev, tev
+
+
+def peaked_evaluators(A: int):
+    """(jax, torch) evaluators preferring low actions strongly (a trained
+    net's regime: visits concentrate, so reuse is substantial)."""
+    def jev(obs, to_play=None):
+        logits = jnp.tile(-0.2 * jnp.arange(A, dtype=jnp.float32),
+                          (obs.shape[0], 1))
+        return logits, jnp.zeros((obs.shape[0],), jnp.float32)
+
+    def tev(obs, to_play=None):
+        logits = (-0.2 * torch.arange(A, dtype=torch.float32)).repeat(obs.shape[0], 1)
+        return logits, torch.zeros((obs.shape[0],))
+
+    return jev, tev
 
 
 @pytest.mark.parametrize("wave,sims,seed,plies,k", [
@@ -64,7 +96,7 @@ def _roots(seed: int, plies: int):
     (16, 64, 6, 40, 32),
 ])
 def test_visit_counts_match_jax(wave, sims, seed, plies, k):
-    jenv, jst, tenv, tst = _roots(seed, plies)
+    jenv, jst, tenv, tst = roots(N, B, seed, plies)
     cfg_kw = dict(num_simulations=sims, wave_size=wave, max_children=k,
                   dirichlet_epsilon=0.0)
     jcfg = jsearch.MCTSConfig(**cfg_kw)
@@ -117,16 +149,6 @@ def test_topk_ties_take_lowest_index():
     assert topa[0].tolist() == list(range(8))
     assert topa[1].tolist() == [1, 2, 4, 5, 7, 8, 0, 3]
     assert float(topv[1, 6]) == 0.0 and float(topv[1, 0]) > 0
-
-
-def test_unported_options_raise():
-    env = GomokuEnv(board_size=N)
-    ev = make_uniform_eval_fn(N * N)
-    for kw in (dict(wave_size=1), dict(wave_size=4, parity_mode=True),
-               dict(wave_size=4, td_lambda=0.5), dict(wave_size=4, tt_size=64),
-               dict(wave_size=4, tree_reuse=True)):
-        with pytest.raises(NotImplementedError):
-            tsearch.make_host_search(env, ev, tsearch.MCTSConfig(**kw))
 
 
 def test_dirichlet_noise_from_generator():
