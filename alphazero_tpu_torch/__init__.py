@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of ``alphazero_tpu`` for one NVIDIA H100.
 
 The package mirrors the JAX package's module layout (``core``, ``games``,
-``ops``, ``models``, ``mcts``, ``selfplay``, ``scripts``) so each module has
+``ops``, ``models``, ``mcts``, ``selfplay``, ``training``, ``eval``,
+``elo``, ``scripts``) so each module has
 an obvious counterpart, and imports ``torch`` only: nothing of JAX, flax or
 ``alphazero_tpu``.  Hand-written CUDA kernels live in ``csrc/`` and are built
 with ``nvcc`` at first use (``ops/_build.py``).

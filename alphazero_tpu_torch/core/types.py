@@ -66,3 +66,11 @@ def stack_states(states):
     return type(states[0])(**{
         f.name: torch.stack([getattr(s, f.name) for s in states])
         for f in dataclasses.fields(states[0])})
+
+
+def cat_states(states):
+    """Concatenate a sequence of batched state dataclasses along the batch
+    axis."""
+    return type(states[0])(**{
+        f.name: torch.cat([getattr(s, f.name) for s in states])
+        for f in dataclasses.fields(states[0])})

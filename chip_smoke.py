@@ -80,7 +80,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      cut in depth only (printed): 2 iterations of 256 games, W=1, its
      GroupNorm net; every distinct gather call held against its plain
      version, checkpoints and finite losses;
- 10. summary: one JSON line of kernels, then the final status line.
+ 10. [variants]: Renju, Omok and pro-long on the card against the CPU,
+     exactly, at 4,096 random-playout positions (forbidden_map, legal_mask,
+     step); then Renju self-play as [main] (B=1024, W=16, 800 simulations,
+     int8) from 20 policy-sampled plies, 2 moves, with the forbidden
+     points among the roots, legal_mask ms a wave and moves/s beside
+     [main]'s; its kernel calls held against their plain versions;
+ 11. [arena]: a 7x7 play_match_sides (one side with tree reuse) and
+     play_match_host on the card against the CPU (winners and final boards
+     equal); the flagship (BN-folded bf16, 128 simulations) against the four
+     anchors, 16 games each, Bradley-Terry pinned at uniform_mcts_256 =
+     1500, at least 12 of 16 against uniform_mcts_16; scripts/evaluate.py
+     as a subprocess, its JSON keys equal to the JAX CLI's; kernel calls
+     held against their plain versions;
+ 12. summary: one JSON line of kernels, then the final status line.
 
 gather_rows times are taken with warm L2 (the search re-reads the same
 arenas within a wave); its ``bound_ms`` counts the bytes the call must move
@@ -553,13 +566,14 @@ def _s8_launches_expected(batches, convs: int, chunk: int) -> int:
 def phase_main_path(env, eval_fn, label: str, sims: int, moves: int,
                     s8_convs: int = 0, B: int = 1024, W: int = 16,
                     reuse: bool = False, greedy: bool = False,
-                    tag: str = "main") -> dict:
+                    tag: str = "main", start_states=None) -> dict:
     """Self-play moves at full width (K=32) with ``eval_fn``: B lanes, W
     walkers a wave; recycling and moves sampled at temperature 1, or with
     ``greedy`` greedy moves and no recycling; with ``reuse`` tree reuse
     (topup budget), always greedy.  The first move is the warm-up.
     ``s8_convs``: s8_mm launches the evaluator makes per chunk (0: none
-    expected).
+    expected).  ``start_states``: the B root states of the first move
+    (default: empty boards).
 
     The warm-up move runs with its kernel calls recorded, and with ``reuse``
     one untimed move after the timed ones too (a move that re-roots); every
@@ -588,6 +602,8 @@ def phase_main_path(env, eval_fn, label: str, sims: int, moves: int,
                         tree_reuse=reuse, reuse_budget="topup"),
         recycle=not greedy, temperature=0.0 if greedy else 1.0)
     step, states = make_host_actor(env, counted_eval, config, B, device="cuda")
+    if start_states is not None:
+        states = start_states
     gen = torch.Generator(device="cuda").manual_seed(0)
     rec = _KernelCalls()
 
@@ -920,6 +936,284 @@ def phase_train_config() -> dict:
             and "ckpt_1.pt" in files):
         raise AssertionError(f"the shipped config did not train: {history}, {files}")
     return res
+
+
+def _playout_states(env, B: int, max_plies: int, gen) -> object:
+    """Seeded random playouts on the CPU: lane b plays ``b % (max_plies +
+    1)`` uniform legal moves (odd lanes inside the 7x7 center while they
+    can, so threats and fives come early); games that end stop there.
+    ``_random_states`` draws lane by lane and steps every action to keep
+    games alive; this draws for all lanes at once, which 4,096 lanes
+    need."""
+    from alphazero_tpu_torch.core.types import where_lanes
+
+    n = env.board_size
+    cells = torch.arange(n * n)
+    near = ((cells // n - n // 2).abs() <= 3) & ((cells % n - n // 2).abs() <= 3)
+    odd = (torch.arange(B) % 2 == 1)[:, None]
+    plies = torch.arange(B) % (max_plies + 1)
+    st = env.init(B, device="cpu")
+    for ply in range(max_plies):
+        legal = env.legal_mask(st)
+        pref = legal & near & odd
+        w = torch.where(pref.any(-1, keepdim=True), pref, legal)
+        w = w | ~w.any(-1, keepdim=True)
+        acts = torch.multinomial(w.float(), 1, generator=gen)[:, 0]
+        st = where_lanes(plies > ply, env.step(st, acts), st)
+    return st
+
+
+_STATE_FIELDS = ("board", "to_play", "last_moves", "move_count", "terminal",
+                 "winner", "hash")
+
+
+def phase_variants_exact() -> list:
+    """Renju, Omok and pro-long on the card against the CPU, exactly: 4,096
+    seeded random-playout positions at 15x15 with 0 to 60 plies;
+    ``forbidden_map`` (both maps), ``legal_mask``, and ``step`` (every
+    field) on one more move a lane drawn from the variant's legal cells."""
+    from alphazero_tpu_torch.games.gomoku import GomokuEnv
+
+    gen = torch.Generator().manual_seed(11)
+    cpu = _playout_states(GomokuEnv(board_size=15), 4096, 60, gen)
+    gpu = cpu.map(lambda x: x.cuda())
+    rows = []
+    for name, kw in (("renju", dict(use_renju=True)), ("omok", dict(use_omok=True)),
+                     ("pro_long", dict(use_pro_long_opening=True))):
+        env = GomokuEnv(board_size=15, **kw)
+        eq, row = {}, {"variant": name, "positions": cpu.batch_size}
+        if name != "pro_long":
+            fc, vc = env.forbidden_map(cpu.board == 0, cpu.board == 1)
+            fg, vg = env.forbidden_map(gpu.board == 0, gpu.board == 1)
+            eq["forbidden"] = torch.equal(fc, fg.cpu())
+            eq["exact_five"] = torch.equal(vc, vg.cpu())
+            row["forbidden_points"] = int((fc & ~vc).sum())
+            row["boards_with_forbidden"] = int((fc & ~vc).flatten(1).any(1).sum())
+        lc = env.legal_mask(cpu)
+        eq["legal_mask"] = torch.equal(lc, env.legal_mask(gpu).cpu())
+        w = lc | ~lc.any(-1, keepdim=True)
+        acts = torch.multinomial(w.float(), 1, generator=gen)[:, 0]
+        sc, sg = env.step(cpu, acts), env.step(gpu, acts.cuda())
+        for f in _STATE_FIELDS:
+            eq[f"step.{f}"] = torch.equal(getattr(sc, f), getattr(sg, f).cpu())
+        row["wins_after_step"] = int(((sc.winner >= 0) & ~cpu.terminal).sum())
+        row["equal"] = eq
+        log("[variants] card vs CPU: " + json.dumps(row))
+        if not all(eq.values()):
+            raise AssertionError(f"{name} differs between the card and the CPU: {eq}")
+        rows.append(row)
+    return rows
+
+
+def _policy_plies(env, eval_fn, B: int, plies: int, seed: int):
+    """B games from the empty board after ``plies`` moves sampled from the
+    net's masked policy, on the card.  A move that would end its game is
+    taken back (the lane draws again on the next ply), so the roots are
+    live."""
+    from alphazero_tpu_torch.core.types import where_lanes
+    from alphazero_tpu_torch.mcts.search import masked_softmax
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    st = env.init(B, device="cuda")
+    with torch.no_grad():
+        for _ in range(plies):
+            logits, _ = eval_fn(env.observation(st), env.to_play(st))
+            probs = masked_softmax(logits.float(), env.legal_mask(st))
+            nxt = env.step(st, torch.multinomial(probs, 1, generator=gen)[:, 0])
+            st = where_lanes(nxt.terminal, st, nxt)
+    return st
+
+
+def phase_variants(int8_eval, convs: int, main_res: dict) -> dict:
+    """Renju self-play at the main path's full width: B=1024, W=16, 800
+    simulations, K=32, the flagship's int8 executor, from positions after
+    20 policy-sampled plies (so forbidden points exist), 2 moves (the
+    second timed), through ``phase_main_path`` (its checks, launch counts
+    and recorded kernel calls held against their plain versions).  Prints
+    moves/s beside [main]'s, the forbidden points among the roots' cells,
+    and ``legal_mask``'s time a wave (B*W leaves) under Renju and
+    freestyle."""
+    from alphazero_tpu_torch.core import registry
+
+    exact = phase_variants_exact()
+    renju = registry.create_game("gomoku", 15, use_renju=True)
+    free = registry.create_game("gomoku", 15)
+    B, W = 1024, 16
+    starts = _policy_plies(renju, int8_eval, B, 20, seed=12)
+    black = (starts.to_play == 0) & ~starts.terminal
+    lost = (free.legal_mask(starts) & ~renju.legal_mask(starts))[black]
+    roots = {"roots": B, "black_to_move": int(black.sum()),
+             "terminal": int(starts.terminal.sum()),
+             "forbidden_points": int(lost.sum()),
+             "roots_with_forbidden": int(lost.any(-1).sum())}
+    log("[variants] Renju roots after 20 policy plies: " + json.dumps(roots))
+    if roots["forbidden_points"] <= 0:
+        raise AssertionError(f"no forbidden point among the Renju roots: {roots}")
+    # legal_mask over one wave's leaves: each root and one legal move, W times.
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rep = starts.map(lambda x: x.repeat_interleave(W, 0))
+    legal = free.legal_mask(rep)
+    w = legal | ~legal.any(-1, keepdim=True)
+    leaves = free.step(rep, torch.multinomial(w.float(), 1, generator=gen)[:, 0])
+    mask_ms = {"renju": cuda_ms(lambda: renju.legal_mask(leaves), reps=10),
+               "freestyle": cuda_ms(lambda: free.legal_mask(leaves), reps=10)}
+    res = phase_main_path(renju, int8_eval, "int8", sims=800, moves=2,
+                          s8_convs=convs, B=B, W=W, tag="variants",
+                          start_states=starts)
+    waves = 800 // W + 1
+    summary = {
+        "renju_moves_per_s": res["timed_moves_per_s"],
+        "main_moves_per_s": main_res["timed_moves_per_s"],
+        "legal_mask_ms_per_wave": mask_ms,
+        "legal_mask_leaves": leaves.batch_size,
+        "renju_legal_mask_s_per_move_est": mask_ms["renju"] * waves / 1e3,
+        "gather_launches_per_move": res["gather_launches_per_move"],
+        "s8_mm_launches": res["launches"]["s8_mm"],
+    }
+    log("[variants] " + json.dumps(summary))
+    return {"exact": exact, "roots": roots, "main": res, **summary}
+
+
+def _jax_cli_keys(path: str) -> list:
+    """The keys of the dict the JAX CLI at ``path`` prints with
+    ``json.dumps`` (read from its source; nothing of it is imported)."""
+    import ast
+
+    with open(os.path.join(ROOT, path)) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and getattr(node.func, "id", "") == "print"
+                and node.args and isinstance(node.args[0], ast.Call)
+                and getattr(node.args[0].func, "attr", "") == "dumps"
+                and isinstance(node.args[0].args[0], ast.Dict)):
+            return [k.value for k in node.args[0].args[0].keys]
+    raise AssertionError(f"no printed JSON dict in {path}")
+
+
+def phase_arena(model_path, games: int = 16, cand_sims: int = 128) -> dict:
+    """Evaluation on the card.
+
+    1. Card against CPU at 7x7, temperature 0, no openings: play_match_sides
+       (the uniform stub, value 0, at 32 simulations with tree reuse against
+       ``_integer_value_eval`` at 16) and play_match_host (24 simulations,
+       the same two nets); every lane's winner and final board equal.
+    2. The anchored ladder: the flagship bundle as ``scripts/evaluate.py``
+       loads it (BN-folded bf16) at ``cand_sims`` simulations, W=16,
+       against each ``POOL`` anchor through play_match_sides, ``games``
+       games each, 6 mirrored opening plies, T=0.1, 225 moves at most;
+       Bradley-Terry with uniform_mcts_256 at 1500, from this run's matches
+       alone and with the anchors' round-robin in docs/anchor_table.json.
+       Fails unless the flagship takes 12 of 16 games (three quarters)
+       against uniform_mcts_16.
+    3. ``scripts/evaluate.py`` as a subprocess: its JSON keys equal the
+       JAX CLI's.
+    The kernel calls of the card runs of 1 and of the first ladder match
+    are held against their plain versions."""
+    from alphazero_tpu_torch.core import registry
+    from alphazero_tpu_torch.elo.bradley_terry import fit_bradley_terry
+    from alphazero_tpu_torch.eval import anchors
+    from alphazero_tpu_torch.eval.arena import (
+        ArenaConfig, play_match_host, play_match_sides)
+    from alphazero_tpu_torch.mcts.search import MCTSConfig
+    from alphazero_tpu_torch.models.stub import make_uniform_eval_fn
+    from alphazero_tpu_torch.ops.gather_rows import gather_rows
+    from alphazero_tpu_torch.scripts.evaluate import load_eval_fn
+
+    out = {}
+    env7 = registry.create_game("gomoku", 7)
+    uni, ival = make_uniform_eval_fn(env7.num_actions), _integer_value_eval(env7)
+    side_a = (uni, MCTSConfig(num_simulations=32, wave_size=8, dirichlet_epsilon=0.0,
+                              tree_reuse=True, reuse_cap=64))
+    side_b = (ival, MCTSConfig(num_simulations=16, wave_size=4, dirichlet_epsilon=0.0))
+    host_cfg = ArenaConfig(mcts=MCTSConfig(num_simulations=24, wave_size=8,
+                                           dirichlet_epsilon=0.0),
+                           max_moves=49, temperature=0.0)
+    runs, rec = {}, _KernelCalls()
+    for dev in ("cuda", "cpu"):
+        with rec if dev == "cuda" else contextlib.nullcontext():
+            runs[dev] = (play_match_sides(env7, side_a, side_b, None, 16, max_moves=49,
+                                          temperature=0.0, device=dev),
+                         play_match_host(env7, uni, ival, None, host_cfg, 16, device=dev))
+    for i, kind in enumerate(("sides", "host")):
+        g, c = runs["cuda"][i], runs["cpu"][i]
+        row = {"match": kind, "lanes": c.winner.shape[0],
+               "winners": c.winner.tolist(),
+               "moves": c.states.move_count.tolist(),
+               "winner_equal": torch.equal(g.winner.cpu(), c.winner),
+               "board_equal": torch.equal(g.states.board.cpu(), c.states.board)}
+        log("[arena] card vs CPU 7x7: " + json.dumps(row))
+        if not (row["winner_equal"] and row["board_equal"]):
+            raise AssertionError(f"arena card and CPU differ: {row}")
+        out[f"card_vs_cpu_{kind}"] = row
+    _check_recorded("arena card_vs_cpu", rec, each=False)
+
+    env = registry.create_game("gomoku", 15)
+    cand = (load_eval_fn(model_path, env, "cuda"),
+            MCTSConfig(num_simulations=cand_sims, wave_size=16, dirichlet_epsilon=0.0))
+    log("[arena] ladder depth: " + json.dumps({
+        "games_per_anchor": games, "candidate_simulations": cand_sims,
+        "wave": 16, "opening_plies": 6, "temperature": 0.1, "max_moves": 225}))
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rec, ladder, matches = _KernelCalls(), [], []
+    gather_rows.launches = 0
+    t_ladder = time.perf_counter()
+    for i, name in enumerate(anchors.POOL):
+        before = gather_rows.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with rec if i == 0 else contextlib.nullcontext():
+            res = play_match_sides(env, cand, anchors.make_anchor(env, name), gen, games,
+                                   max_moves=225, temperature=0.1,
+                                   opening_random_moves=6, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lanes = res.winner.shape[0]
+        moves = int(res.states.move_count.sum()) - 6 * lanes
+        wa, wb, d = int(res.wins_a), int(res.wins_b), int(res.draws)
+        row = {"anchor": name, "result": f"+{wa} -{wb} ={d}", "wall_s": wall,
+               "moves": moves, "moves_per_s": moves / wall,
+               "plies_max": int(res.states.move_count.max()),
+               "gather_launches": gather_rows.launches - before}
+        log("[arena] flagship vs " + json.dumps(row))
+        ladder.append(row)
+        matches.append((f"flagship@{cand_sims}", name, wa, wb, d))
+    ladder_wall = time.perf_counter() - t_ladder
+    _check_recorded("arena ladder", rec, each=False)
+    with open(os.path.join(ROOT, "docs", "anchor_table.json")) as f:
+        table = [tuple(r) for r in json.load(f)]
+    fit = {k: fit_bradley_terry(m, anchor=anchors.CANONICAL,
+                                anchor_rating=anchors.CANONICAL_RATING)
+           for k, m in (("this_run", matches), ("with_anchor_table", matches + table))}
+    total_moves = sum(r["moves"] for r in ladder)
+    out["ladder"] = {
+        "matches": ladder, "bt_rating": {k: v[f"flagship@{cand_sims}"] for k, v in fit.items()},
+        "anchor_ratings_with_table": {a: fit["with_anchor_table"][a] for a in anchors.POOL},
+        "wall_s": ladder_wall, "moves_per_s": total_moves / ladder_wall,
+        "gather_launches": gather_rows.launches}
+    log("[arena] ladder: " + json.dumps({k: v for k, v in out["ladder"].items()
+                                         if k != "matches"}))
+    need = -(-3 * games // 4)
+    if matches[0][2] < need:
+        raise AssertionError(f"the flagship took {matches[0][2]} of {games} games "
+                             f"against {matches[0][1]}, fewer than {need}")
+    if gather_rows.launches <= 0:
+        raise AssertionError("the arena launched no gather_rows kernel")
+
+    cmd = [sys.executable, "-m", "alphazero_tpu_torch.scripts.evaluate",
+           "--model-a", os.path.join("models_zoo", "flagship_gomoku15"),
+           "--num-games", "8", "--simulations", "64"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)} failed: {proc.stderr[-2000:]}")
+    printed = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = _jax_cli_keys(os.path.join("alphazero_tpu", "scripts", "evaluate.py"))
+    out["cli"] = {"printed": printed, "wall_s": time.perf_counter() - t0,
+                  "keys_equal_jax": list(printed) == want}
+    log("[arena] scripts/evaluate.py: " + json.dumps(out["cli"]))
+    if list(printed) != want:
+        raise AssertionError(f"evaluate.py printed keys {list(printed)}, the JAX CLI {want}")
+    return out
 
 
 def _named_tensors(tree, prefix="") -> dict:
@@ -1360,6 +1654,8 @@ def main() -> int:
     timed("parity", phase_parity)
     timed("train", phase_train, env, model_path)
     timed("train_config", phase_train_config)
+    timed("variants", phase_variants, int8_eval, convs, main_res)
+    timed("arena", phase_arena, model_path)
 
     head = rows[0]  # child stats: the most rows of any gather per level
     kernels = [{

@@ -52,8 +52,7 @@ def test_registry():
     for name in ("go", "chess"):
         with pytest.raises(NotImplementedError):
             registry.create_game(name)
-    with pytest.raises(NotImplementedError):
-        registry.create_game("gomoku", 15, use_renju=True)
+    assert registry.create_game("gomoku", 15, use_renju=True).use_renju
 
 
 def test_result_from_winner():
