@@ -1,7 +1,7 @@
 """Game registry + factory (counterpart of ``alphazero_tpu/core/registry.py``).
 
-Only Gomoku is ported; Go and chess are registered names that raise until
-their slices land.
+Gomoku and Go are ported; chess is a registered name that raises until its
+slice lands.
 """
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ from typing import Any, Callable, Dict
 
 from alphazero_tpu_torch.core.types import GameType
 
-_NOT_PORTED = {"go": GameType.GO, "chess": GameType.CHESS}
+_NOT_PORTED = {"chess": GameType.CHESS}
 
 
 def _gomoku(**kwargs):
@@ -18,8 +18,14 @@ def _gomoku(**kwargs):
     return GomokuEnv(**kwargs)
 
 
-_REGISTRY: Dict[str, Callable[..., Any]] = {"gomoku": _gomoku}
-_BY_TYPE: Dict[GameType, str] = {GameType.GOMOKU: "gomoku",
+def _go(**kwargs):
+    from alphazero_tpu_torch.games.go import GoEnv
+
+    return GoEnv(**kwargs)
+
+
+_REGISTRY: Dict[str, Callable[..., Any]] = {"gomoku": _gomoku, "go": _go}
+_BY_TYPE: Dict[GameType, str] = {GameType.GOMOKU: "gomoku", GameType.GO: "go",
                                  **{t: n for n, t in _NOT_PORTED.items()}}
 
 
@@ -28,7 +34,7 @@ def registered_games():
 
 
 def create_game(name_or_type, board_size: int | None = None, **variant_args):
-    """Create an environment by name ("gomoku") or GameType."""
+    """Create an environment by name ("gomoku", "go") or GameType."""
     if isinstance(name_or_type, GameType):
         name = _BY_TYPE.get(name_or_type, "")
     else:

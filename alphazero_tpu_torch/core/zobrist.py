@@ -5,6 +5,12 @@ with the reference seed.  The JAX package keeps each 64-bit key as a
 ``uint32`` pair ``[k0, k1]``; torch has little ``uint32`` support, so the
 port keeps each key as one ``int64`` holding ``k0 << 32 | k1`` (two's
 complement: the bit pattern is what matters) and xors whole keys.
+
+Go's hashes are additive instead (JAX's two u32 lanes, each summed mod
+2**32): the port keeps each lane as an int64 in [0, 2**32) (``split_key``),
+adds and subtracts lane by lane, masks with ``LANE_MASK``, and packs a key
+with ``pack_lanes`` only where a whole key is wanted (a table slot).
+Adding packed keys would carry the low lane into the high one.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import numpy as np
 import torch
 
 DEFAULT_SEED = 20240512
+LANE_MASK = 0xFFFFFFFF
 
 
 @functools.lru_cache(maxsize=None)
@@ -27,7 +34,12 @@ def _host_table(shape: tuple, seed: int) -> np.ndarray:
 
 def split_key(h: torch.Tensor):
     """int64 keys -> (k0, k1) as int64 values in [0, 2^32): the JAX pair."""
-    return (h >> 32) & 0xFFFFFFFF, h & 0xFFFFFFFF
+    return (h >> 32) & LANE_MASK, h & LANE_MASK
+
+
+def pack_lanes(k0: torch.Tensor, k1: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``split_key``: lanes in [0, 2^32) -> int64 keys."""
+    return (k0 << 32) | k1
 
 
 class ZobristTable:

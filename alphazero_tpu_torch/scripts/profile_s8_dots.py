@@ -59,7 +59,8 @@ class Case(NamedTuple):
     # of a wider `a`, `b` a transposed view: both must be copied);
     # "misaligned" (bases one element past a 16-byte boundary); "pitched"
     # (`a` the first K columns of a wider matrix whose pitch is a multiple
-    # of 16 bytes, other data behind them: read in place).
+    # of 16 bytes, other data behind them: read in place); "im2col" (the
+    # same with the least such pitch, as ``models/quant._im2col`` lays it).
     layout: str = "dense"
     lowest: int = -127  # smallest s8 value drawn; -128 is forced in if asked
 
@@ -96,6 +97,18 @@ def trunk_cases(boards: int = 512, cells: int = 225):
             Case("s8_mm", "stem_11_pitched", torch.int8, (M, 99), (99, 64),
                  layout="pitched"),
             Case("s8_mm", "head_1x1", torch.int8, (M, 64), (64, 32))]
+
+
+def go_cases():
+    """``s8_mm`` at the int8 trunk's shapes on Go: one chunk of 512 boards
+    at 9x9 and at 19x19, the 3x3 conv in im2col form and the 8-plane stem
+    (K = 72) as the executor's im2col hands it over (``layout="im2col"``:
+    an 80-byte pitch)."""
+    s8 = torch.int8
+    return [Case("s8_mm", f"go{n}_{name}", s8, (512 * n * n, K), (K, 64), layout=layout)
+            for n in (9, 19)
+            for name, K, layout in (("conv3x3_64", 576, "dense"),
+                                    ("stem_8", 72, "im2col"))]
 
 
 def multi_prologue_cases():
@@ -246,8 +259,8 @@ def make_inputs(case: Case, gen: torch.Generator):
         size = K * N * (lead[0] if lead else 1)
         return (rand((M * K + 1,))[1:].view(M, K),
                 rand((size + 1,))[1:].view(case.b_shape))
-    if case.layout == "pitched":
-        pitch = -(-K // per16) * per16 + per16
+    if case.layout in ("pitched", "im2col"):
+        pitch = -(-K // per16) * per16 + (per16 if case.layout == "pitched" else 0)
         return rand((M, pitch))[:, :K], rand(case.b_shape)
     return rand(case.a_shape), rand(case.b_shape)
 

@@ -46,6 +46,7 @@ def main(argv=None):
     from alphazero_tpu_torch.core import registry
     from alphazero_tpu_torch.mcts.search import MCTSConfig
     from alphazero_tpu_torch.models.stub import make_uniform_eval_fn
+    from alphazero_tpu_torch.scripts.evaluate import default_max_moves
     from alphazero_tpu_torch.selfplay import game_record
     from alphazero_tpu_torch.selfplay.actor import (
         SelfPlayConfig, make_host_actor, stack_records,
@@ -69,7 +70,7 @@ def main(argv=None):
     else:
         eval_fn = make_uniform_eval_fn(env.num_actions, value_noise=0.1)
 
-    max_moves = args.max_moves or env.board_size ** 2 + 1
+    max_moves = args.max_moves or default_max_moves(args.game, env.board_size)
     config = SelfPlayConfig(
         mcts=MCTSConfig(num_simulations=args.simulations,
                         wave_size=max(1, min(args.wave, args.simulations))),

@@ -42,8 +42,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      [w1_main]: the sequential search (W=1) at the shipped config's width,
      B=256, 800 simulations, int8 executor, 2 moves: the same checks, s8_mm
      exactly 13 x (1 + 800) launches a move, eval and search ms a
-     simulation; [reuse_base] and [reuse_main]: 3 greedy moves at B=1024,
-     W=16, 800 simulations without and with tree reuse (topup): fresh
+     simulation; [reuse_base] and [reuse_main]: 2 greedy moves (cut from 3
+     with the Go phases) at B=1024, W=16, 800 simulations without and with
+     tree reuse (topup): fresh
      simulations a move (800, then fewer), every live root at 800 visits
      or more, moves/s of both and [main]'s; every main path records the
      kernel calls of its warm-up move, and [reuse_main] of one more
@@ -93,7 +94,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      1500, at least 12 of 16 against uniform_mcts_16; scripts/evaluate.py
      as a subprocess, its JSON keys equal to the JAX CLI's; kernel calls
      held against their plain versions;
- 12. summary: one JSON line of kernels, then the final status line.
+ 12. Go (slice 9): [go_exact] 4,096 random-playout 9x9 positions (0-120
+     plies) and 1,024 at 19x19 (0-240), played on the card, against the
+     CPU exactly (masks, observations, both rule sets' scores with and
+     without dead stones, ownership, hashes, arena rows, one more step);
+     [go_search] card vs CPU at 9x9 (B=64, 128 simulations, W=16, W=1 and
+     W=1 with a 256-entry table); [go_main] (models_zoo/go9, int8 with
+     rollout calibration) and [go19_main] (a fresh 6x64 net at 19x19) as
+     [main] at B=1024, W=16, 800 simulations, 2 moves, with one wave's env
+     ms (step, legal_mask, observation) and host syncs; [go_train_config]:
+     config/go_9x9.json cut in depth (2 iterations, 16 moves, 64
+     simulations, 4 train steps); [go_arena]: go9 (BN-folded bf16, 128
+     simulations) against uniform_mcts_16/64/256, 16 games each, at least 12
+     against uniform_mcts_16, Bradley-Terry with the anchors' round-robin
+     of docs/train_zoo_go9.json, and scripts/evaluate.py --game go;
+ 13. summary: one JSON line of kernels, then the final status line.
 
 gather_rows times are taken with warm L2 (the search re-reads the same
 arenas within a wave); its ``bound_ms`` counts the bytes the call must move
@@ -101,7 +116,8 @@ arenas within a wave); its ``bound_ms`` counts the bytes the call must move
 The products' ``bound_ms`` is the larger of their operations at the tensor
 cores' peak (1,979 TOP/s int8, 989 TFLOP/s bf16) and their bytes (inputs
 and output once) at 3.35 TB/s.  ``library_ms`` times ``torch._int_mm``
-(s8) or ``torch.matmul`` (bf16) where they take the shape, for s8_mm_multi
+(s8; on a dense copy of a pitched ``a``) or ``torch.matmul`` (bf16) where
+they take the shape, for s8_mm_multi
 ``torch._int_mm`` on the stacked form ``a.repeat(1, taps) @ b.reshape(taps
 K, N)`` (the repeat made before the timing); the port itself calls neither
 for these products.
@@ -407,7 +423,8 @@ def _library_for(case):
             a_rep, b_cat = a.repeat(1, taps), b.reshape(taps * K, N)
             return lambda: torch._int_mm(a_rep, b_cat)
         return stacked
-    return lambda a, b: lambda: torch._int_mm(a, b)
+    # A dense copy of a pitched `a`, made before the timing.
+    return lambda a, b: (lambda a: lambda: torch._int_mm(a, b))(a.contiguous())
 
 
 def phase_products() -> list:
@@ -426,7 +443,7 @@ def phase_products() -> list:
         if routes != {"resident", "tiled"}:
             raise AssertionError(f"the {kernel} edge cases took only the routes {routes}")
     rows = []
-    for case in (probe.trunk_cases() + probe.probe_cases(chain=8)
+    for case in (probe.trunk_cases() + probe.go_cases() + probe.probe_cases(chain=8)
                  + probe.multi_prologue_cases()):
         row = probe.run_case(case, gen, reps=20, library=_library_for(case))
         log("[kernel] " + json.dumps(row))
@@ -883,23 +900,25 @@ def phase_parity() -> list:
     return rows
 
 
-def phase_train_config() -> dict:
-    """``scripts/train.py --config`` on a copy of config/gomoku_15x15.json
-    cut in depth only (printed): the shipped width (256 games, the 6x64
-    GroupNorm net, its raw inference path) and W=1.  Every distinct gather
-    and s8_mm call of the run is held against its plain version."""
+def phase_train_config(name: str = "gomoku_15x15.json", tag: str = "train_config",
+                       cuts: dict | None = None) -> dict:
+    """``scripts/train.py --config`` on a copy of ``config/<name>`` cut in
+    depth only (printed): the shipped width (its games, its GroupNorm net on
+    the raw inference path, W=1), 2 iterations of 8 moves (``cuts``
+    overrides), 64 simulations, 4 train steps.  Every distinct gather and
+    s8_mm call of the run is held against its plain version."""
     import tempfile
 
     from alphazero_tpu_torch.ops.gather_rows import gather_rows
     from alphazero_tpu_torch.ops.s8_mm import s8_mm
     from alphazero_tpu_torch.scripts import train as train_cli
 
-    with open(os.path.join(ROOT, "config", "gomoku_15x15.json")) as f:
+    with open(os.path.join(ROOT, "config", name)) as f:
         cfg = json.load(f)
     cuts = {"iterations": 2, "selfplay.max_moves": 8,
             "selfplay.mcts.num_simulations": 64,
             "train_steps_per_iteration": 4, "min_replay_before_training": 1,
-            "checkpoint_every": 1}
+            "checkpoint_every": 1, **(cuts or {})}
     with tempfile.TemporaryDirectory() as tmp:
         cuts["checkpoint_dir"] = os.path.join(tmp, "run")
         for key, v in cuts.items():
@@ -908,9 +927,9 @@ def phase_train_config() -> dict:
             for k in path:
                 node = node[k]
             node[last] = v
-        log("[train_config] cuts of config/gomoku_15x15.json: " + json.dumps(
+        log(f"[{tag}] cuts of config/{name}: " + json.dumps(
             {k: v for k, v in cuts.items() if k != "checkpoint_dir"}))
-        cfg_path = os.path.join(tmp, "gomoku_15x15.json")
+        cfg_path = os.path.join(tmp, name)
         with open(cfg_path, "w") as f:
             json.dump(cfg, f)
         gather_rows.launches = 0
@@ -924,17 +943,17 @@ def phase_train_config() -> dict:
         with open(os.path.join(cuts["checkpoint_dir"], "history.json")) as f:
             history = json.load(f)
         files = sorted(os.listdir(cuts["checkpoint_dir"]))
-    held = _check_recorded("train_config", recorded)
+    held = _check_recorded(tag, recorded)
     for e in history:
-        log("[train_config] iteration: " + json.dumps(e))
+        log(f"[{tag}] iteration: " + json.dumps(e))
     res = {"wall_s": wall, "launches": launches, "files": files,
            "signatures": len(held)}
-    log("[train_config] " + json.dumps(res))
+    log(f"[{tag}] " + json.dumps(res))
     if launches["gather_rows"] <= 0:
-        raise AssertionError("the shipped config's actor launched no gather_rows")
+        raise AssertionError(f"config/{name}'s actor launched no gather_rows")
     if not (len(history) == 2 and all(np.isfinite(e["loss"]) for e in history)
             and "ckpt_1.pt" in files):
-        raise AssertionError(f"the shipped config did not train: {history}, {files}")
+        raise AssertionError(f"config/{name} did not train: {history}, {files}")
     return res
 
 
@@ -1213,6 +1232,303 @@ def phase_arena(model_path, games: int = 16, cand_sims: int = 128) -> dict:
     log("[arena] scripts/evaluate.py: " + json.dumps(out["cli"]))
     if list(printed) != want:
         raise AssertionError(f"evaluate.py printed keys {list(printed)}, the JAX CLI {want}")
+    return out
+
+
+# ---- Go (slice 9) ---------------------------------------------------------
+
+_GO_FIELDS = ("board", "to_play", "ko_point", "consecutive_passes", "move_count",
+              "prisoners", "terminal", "winner", "board_hash", "history",
+              "last_move")
+GO9_PATH = os.path.join(ROOT, "models_zoo", "go9")
+
+
+def phase_go_exact(sizes=((9, 4096, 120), (19, 1024, 240))) -> dict:
+    """Go on the card against the CPU, exactly: 4,096 random-playout 9x9
+    positions (0 to 120 plies) and 1,024 at 19x19 (0 to 240 plies), played
+    on the card (the CPU takes minutes for them):
+    ``legal_mask``, ``observation`` (bit for bit), area and territory
+    scores with and without dead stones, ``territory_ownership``,
+    ``position_hash``, the arena-row round trip, and ``step`` (every field,
+    then the mask and observation from the stats it kept) on one more
+    legal move a lane.  Prints the ko points, the moves the superko ring
+    refuses (with the ko point set aside, and where nothing else refuses
+    them), and the captures among the positions.  Returns the positions,
+    for the env timings of the main paths."""
+    from alphazero_tpu_torch.games.go import GoEnv
+    from alphazero_tpu_torch.scripts.profile_go_env import random_playouts
+
+    gen = torch.Generator().manual_seed(31)
+    card_gen = torch.Generator(device="cuda").manual_seed(31)
+    out = {}
+    for n, B, plies in sizes:
+        env = GoEnv(board_size=n)
+        t0 = time.perf_counter()
+        gpu = random_playouts(env, B, plies, card_gen, device="cuda")
+        cpu = gpu.map(lambda x: x.cpu())
+        made_s = time.perf_counter() - t0
+        eq = {}
+        lc = env.legal_mask(cpu)
+        eq["legal_mask"] = torch.equal(lc, env.legal_mask(gpu).cpu())
+        eq["observation"] = torch.equal(env.observation(cpu).view(torch.int16),
+                                        env.observation(gpu).view(torch.int16).cpu())
+        dead = torch.rand((B, n, n), generator=gen) < 0.05
+        for rules in (True, False):
+            e = dataclasses.replace(env, chinese_rules=rules)
+            name = "area" if rules else "territory"
+            for tag, args in (("", ()), ("_dead", (dead,))):
+                sc = e.score(cpu, *args)
+                sg = e.score(gpu, *[a.cuda() for a in args])
+                eq[f"score_{name}{tag}"] = all(torch.equal(c, g.cpu())
+                                               for c, g in zip(sc, sg))
+        eq["territory_ownership"] = torch.equal(env.territory_ownership(cpu),
+                                                env.territory_ownership(gpu).cpu())
+        eq["position_hash"] = torch.equal(env.position_hash(cpu),
+                                          env.position_hash(gpu).cpu())
+        rows = [r.cuda() for r in env.arena_rows(cpu)]
+        back = env.from_arena_rows(*rows)
+        eq["arena_rows"] = all(torch.equal(getattr(back, f).cpu(), getattr(cpu, f))
+                               for f in _GO_FIELDS)
+        w = lc.float()
+        w = torch.where(w.sum(1, keepdim=True) > 0, w, torch.ones_like(w))
+        acts = torch.multinomial(w, 1, generator=gen)[:, 0]
+        sc, sg = env.step(cpu, acts), env.step(gpu, acts.cuda())
+        for f in _GO_FIELDS:
+            eq[f"step.{f}"] = torch.equal(getattr(sc, f), getattr(sg, f).cpu())
+        eq["step.legal_mask"] = torch.equal(env.legal_mask(sc), env.legal_mask(sg).cpu())
+        eq["step.observation"] = torch.equal(
+            env.observation(sc).view(torch.int16), env.observation(sg).view(torch.int16).cpu())
+        # The ring against a sentinel hash no board takes, with and without
+        # the ko point.
+        no_ko = dataclasses.replace(cpu, ko_point=torch.full_like(cpu.ko_point, -1))
+        sentinel = torch.full_like(cpu.history, 0xFFFFFFFF)
+        ring = (env.legal_mask(dataclasses.replace(no_ko, history=sentinel))
+                & ~env.legal_mask(no_ko))
+        ring_only = env.legal_mask(dataclasses.replace(cpu, history=sentinel)) & ~lc
+        row = {"board": n, "positions": B, "plies": f"0-{plies}",
+               "made_on_card_s": made_s,
+               "ko_points": int((cpu.ko_point >= 0).sum()),
+               "superko_refusals": int(ring.sum()),
+               "superko_refusals_ring_alone": int(ring_only.sum()),
+               "captured_stones": int(cpu.prisoners.sum()),
+               "terminal": int(cpu.terminal.sum()),
+               "captures_on_the_step": int((sc.prisoners.sum(1) - cpu.prisoners.sum(1)).sum()),
+               "equal": eq}
+        log("[go_exact] card vs CPU: " + json.dumps(row))
+        if not all(eq.values()):
+            raise AssertionError(f"Go {n}x{n} differs between the card and the CPU: {eq}")
+        out[n] = gpu
+    return out
+
+
+def phase_go_search() -> list:
+    """The search on Go, card against CPU, at 9x9: B=64 live random-playout
+    roots (0 to 40 plies, on the CPU), 128 simulations, the uniform evaluator with
+    value 0, no noise, greedy, at W=16, at W=1, and at W=1 with a 256-entry
+    table: equal visit counts, actions, table hits and stores.  The card's
+    kernel calls are held against their plain versions."""
+    from alphazero_tpu_torch.games.go import GoEnv
+    from alphazero_tpu_torch.mcts.search import MCTSConfig, make_host_search, select_action
+    from alphazero_tpu_torch.models.stub import make_uniform_eval_fn
+    from alphazero_tpu_torch.scripts.profile_go_env import random_playouts
+
+    env = GoEnv(board_size=9)
+    roots = random_playouts(env, 96, 40, torch.Generator().manual_seed(32), device="cpu")
+    live = torch.nonzero(~roots.terminal)[:64, 0]
+    if live.numel() < 64:
+        raise AssertionError("fewer than 64 live [go_search] roots")
+    roots = roots.map(lambda x: x[live])
+    uni = make_uniform_eval_fn(env.num_actions)
+    rows, rec = [], _KernelCalls()
+    for name, kw in (("W=16", dict(wave_size=16)), ("W=1", dict(wave_size=1)),
+                     ("W=1 table 256", dict(wave_size=1, tt_size=256))):
+        cfg = MCTSConfig(num_simulations=128, max_children=32,
+                         dirichlet_epsilon=0.0, **kw)
+        run = make_host_search(env, uni, cfg)
+        with rec:
+            gpu = run(roots.map(lambda x: x.cuda()))
+        cpu = run(roots)
+        row = {"case": name,
+               "differing_counts": int((gpu.visit_counts.cpu() != cpu.visit_counts).sum()),
+               "same_actions": bool(torch.equal(
+                   select_action(None, gpu.visit_counts, 0.0).cpu(),
+                   select_action(None, cpu.visit_counts, 0.0))),
+               "max_depth": int(cpu.tree.depth.max())}
+        ok = row["differing_counts"] == 0 and row["same_actions"]
+        if cfg.tt_size:
+            g, c = gpu.tree.tt, cpu.tree.tt
+            row.update(hits=int(c.hits.sum()), stores=int(c.stores.sum()),
+                       table_equal=bool(torch.equal(g.hits.cpu(), c.hits)
+                                        and torch.equal(g.stores.cpu(), c.stores)))
+            ok = ok and row["table_equal"] and row["stores"] > 0
+        log("[go_search] card vs CPU: " + json.dumps(row))
+        if not ok:
+            raise AssertionError(f"Go searches differ between the card and the CPU: {row}")
+        rows.append(row)
+    _check_recorded("go_search", rec, each=False)
+    return rows
+
+
+def phase_go_main(env, eval_fn, convs: int, roots, tag: str) -> dict:
+    """Go self-play at full width through ``phase_main_path`` (B=1024,
+    W=16, 800 simulations, K=32, recycle on, int8 executor, 2 moves, the
+    second timed: its checks, exact ``s8_mm`` launches and recorded kernel
+    calls), then one wave's env work on the card from mid-game roots
+    (``profile_go_env.env_wave``: 1,024 [go_exact] positions, 16 leaves
+    each, read back from arena rows, one move each: ms of ``step``,
+    ``legal_mask`` and ``observation``, and host syncs)."""
+    from alphazero_tpu_torch.scripts.profile_go_env import env_wave
+
+    res = phase_main_path(env, eval_fn, "int8", sims=800, moves=2,
+                          s8_convs=convs, tag=tag)
+    wave = env_wave(env, roots)
+    waves = 800 // 16 + 1
+    summary = {"moves_per_s": res["timed_moves_per_s"],
+               "eval_ms_per_wave": res["eval_ms_per_wave"],
+               "env_ms_per_wave": wave["ms_per_wave"], "env_ms": wave["ms"],
+               "env_syncs_per_wave": wave["syncs_per_wave"],
+               "env_leaves": wave["leaves"],
+               "env_s_per_move_est": wave["ms_per_wave"] * waves / 1e3,
+               "gather_launches_per_move": res["gather_launches_per_move"],
+               "s8_mm_launches": res["launches"]["s8_mm"]}
+    log(f"[{tag}] " + json.dumps(summary))
+    return {"main": res, **summary}
+
+
+def phase_go_arena(games: int = 16, cand_sims: int = 128) -> dict:
+    """The anchored ladder on Go: go9 as ``scripts/evaluate.py`` loads it
+    (BN-folded bf16) at ``cand_sims`` simulations, W=16, against
+    uniform_mcts_16, _64 and _256 through play_match_sides, ``games``
+    games each, 4 random opening plies, T=0.1, 162 moves at most (the
+    shape of ``tools/train_zoo_go9.py`` cut in games only); Bradley-Terry
+    with uniform_mcts_256 at 1500 over this run's matches and the
+    anchors' round-robin of ``docs/train_zoo_go9.json``.  Fails unless
+    go9 takes 12 of 16 games against uniform_mcts_16.  Then
+    ``scripts/evaluate.py --game go`` as a subprocess: its JSON keys equal
+    the JAX CLI's.  The first match's kernel calls are held against their
+    plain versions."""
+    from alphazero_tpu_torch.core import registry
+    from alphazero_tpu_torch.elo.bradley_terry import fit_bradley_terry
+    from alphazero_tpu_torch.eval import anchors
+    from alphazero_tpu_torch.eval.arena import play_match_sides
+    from alphazero_tpu_torch.mcts.search import MCTSConfig
+    from alphazero_tpu_torch.ops.gather_rows import gather_rows
+    from alphazero_tpu_torch.scripts.evaluate import load_eval_fn
+
+    env = registry.create_game("go", 9)
+    cand = (load_eval_fn(GO9_PATH, env, "cuda"),
+            MCTSConfig(num_simulations=cand_sims, wave_size=16, dirichlet_epsilon=0.0))
+    pool = ("uniform_mcts_16", "uniform_mcts_64", "uniform_mcts_256")
+    log("[go_arena] ladder depth: " + json.dumps({
+        "games_per_anchor": games, "candidate_simulations": cand_sims, "wave": 16,
+        "opening_plies": 4, "temperature": 0.1, "max_moves": 162}))
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    rec, ladder, matches = _KernelCalls(), [], []
+    gather_rows.launches = 0
+    t_ladder = time.perf_counter()
+    for i, name in enumerate(pool):
+        before = gather_rows.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with rec if i == 0 else contextlib.nullcontext():
+            res = play_match_sides(env, cand, anchors.make_anchor(env, name), gen, games,
+                                   max_moves=162, temperature=0.1,
+                                   opening_random_moves=4, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lanes = res.winner.shape[0]
+        moves = int(res.states.move_count.sum()) - 4 * lanes
+        wa, wb, d = int(res.wins_a), int(res.wins_b), int(res.draws)
+        row = {"anchor": name, "result": f"+{wa} -{wb} ={d}", "wall_s": wall,
+               "moves": moves, "moves_per_s": moves / wall,
+               "plies_max": int(res.states.move_count.max()),
+               "plies_mean": float(res.states.move_count.float().mean()),
+               "gather_launches": gather_rows.launches - before}
+        log("[go_arena] go9 vs " + json.dumps(row))
+        ladder.append(row)
+        matches.append((f"go9@{cand_sims}", name, wa, wb, d))
+    ladder_wall = time.perf_counter() - t_ladder
+    _check_recorded("go_arena ladder", rec, each=False)
+    with open(os.path.join(ROOT, "docs", "train_zoo_go9.json")) as f:
+        table = [tuple(m) for m in json.load(f)["matches"] if "zoo_go9" not in m[:2]]
+    fit = {k: fit_bradley_terry(m, anchor=anchors.CANONICAL,
+                                anchor_rating=anchors.CANONICAL_RATING)
+           for k, m in (("this_run", matches), ("with_round_robin", matches + table))}
+    total_moves = sum(r["moves"] for r in ladder)
+    out = {"ladder": {
+        "matches": ladder,
+        "bt_rating": {k: v[f"go9@{cand_sims}"] for k, v in fit.items()},
+        "anchor_ratings_with_round_robin": {a: fit["with_round_robin"][a] for a in pool},
+        "wall_s": ladder_wall, "moves_per_s": total_moves / ladder_wall,
+        "gather_launches": gather_rows.launches}}
+    log("[go_arena] ladder: " + json.dumps({k: v for k, v in out["ladder"].items()
+                                            if k != "matches"}))
+    need = -(-3 * games // 4)
+    if matches[0][2] < need:
+        raise AssertionError(f"go9 took {matches[0][2]} of {games} games against "
+                             f"{matches[0][1]}, fewer than {need}")
+    # Its keys only are checked: 40 plies (cut from 162) keep it short.
+    cmd = [sys.executable, "-m", "alphazero_tpu_torch.scripts.evaluate", "--game", "go",
+           "--board-size", "9", "--model-a", os.path.join("models_zoo", "go9"),
+           "--num-games", "8", "--simulations", "64", "--max-moves", "40"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)} failed: {proc.stderr[-2000:]}")
+    printed = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = _jax_cli_keys(os.path.join("alphazero_tpu", "scripts", "evaluate.py"))
+    out["cli"] = {"printed": printed, "wall_s": time.perf_counter() - t0,
+                  "keys_equal_jax": list(printed) == want}
+    log("[go_arena] scripts/evaluate.py --game go: " + json.dumps(out["cli"]))
+    if list(printed) != want:
+        raise AssertionError(f"evaluate.py printed keys {list(printed)}, the JAX CLI {want}")
+    return out
+
+
+def phase_go(convs: int) -> dict:
+    """Every Go phase in order; ``convs``: s8_mm launches a chunk of the
+    6-block nets' int8 trunk."""
+    from alphazero_tpu_torch.core import registry
+    from alphazero_tpu_torch.models.io import load_model
+    from alphazero_tpu_torch.models.quant import make_production_eval_fn
+    from alphazero_tpu_torch.models.resnet import AZResNet
+
+    walls, out = {}, {}
+
+    def timed(phase, fn, /, *args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        walls[phase] = round(time.perf_counter() - t0, 1)
+        return res
+
+    positions = timed("go_exact", phase_go_exact)
+    out["search"] = timed("go_search", phase_go_search)
+    t0 = time.perf_counter()
+    env9 = registry.create_game("go", 9)
+    go9, _ = load_model(GO9_PATH, env9.observation_shape, device="cuda")
+    int8_go9, calib = make_production_eval_fn(
+        env9, go9, generator=torch.Generator(device="cuda").manual_seed(7))
+    torch.cuda.synchronize()
+    log(f"[go_main] calibration: {tuple(calib.shape)} rollout observations, "
+        f"calibrated and quantised in {time.perf_counter() - t0:.2f} s")
+    out["go_main"] = timed("go_main", phase_go_main, env9, int8_go9, convs,
+                           positions[9].map(lambda x: x[:1024]), "go_main")
+    env19 = registry.create_game("go", 19)
+    fresh = AZResNet(env19.num_actions, obs_shape=env19.observation_shape,
+                     generator=torch.Generator().manual_seed(0)).to("cuda")
+    t0 = time.perf_counter()
+    int8_go19, calib = make_production_eval_fn(
+        env19, fresh, generator=torch.Generator(device="cuda").manual_seed(7))
+    torch.cuda.synchronize()
+    log(f"[go19_main] fresh AZResNet() 6x64; calibration: {tuple(calib.shape)} "
+        f"rollout observations in {time.perf_counter() - t0:.2f} s")
+    out["go19_main"] = timed("go19_main", phase_go_main, env19, int8_go19, convs,
+                             positions[19], "go19_main")
+    out["train_config"] = timed("go_train_config", phase_train_config, "go_9x9.json",
+                                "go_train_config", {"selfplay.max_moves": 16})
+    out["arena"] = timed("go_arena", phase_go_arena)
+    log("[go] phase wall seconds: " + json.dumps(walls))
+    out["walls"] = walls
     return out
 
 
@@ -1635,13 +1951,16 @@ def main() -> int:
     if w1_res["launches"]["s8_mm"] != convs * (1 + 800) * 2:
         raise AssertionError(f"[w1_main] s8_mm launches {w1_res['launches']}, "
                              f"not {convs} x (1 + 800) a move")
+    # Cut with the Go phases, which took the script past 600 s: 2 moves
+    # each (was 3), the second timed (after reuse, a re-rooted tree).
+    log("[reuse_base] [reuse_main] depth cut: 2 moves each (was 3), the second timed")
     base_res = timed("reuse_base", phase_main_path, env, int8_eval, "int8",
-                     sims=800, moves=3, s8_convs=convs, greedy=True,
+                     sims=800, moves=2, s8_convs=convs, greedy=True,
                      tag="reuse_base")
     reuse_res = timed("reuse_main", phase_main_path, env, int8_eval, "int8",
-                      sims=800, moves=3, s8_convs=convs, reuse=True,
+                      sims=800, moves=2, s8_convs=convs, reuse=True,
                       tag="reuse_main")
-    log("[reuse_main] timed moves/s (moves 2-3) with reuse "
+    log("[reuse_main] timed moves/s (move 2) with reuse "
         f"{reuse_res['timed_moves_per_s']:.2f} against "
         f"{base_res['timed_moves_per_s']:.2f} for the same greedy moves without "
         f"([reuse_base]), {main_res['timed_moves_per_s']:.2f} at temperature 1 "
@@ -1656,6 +1975,8 @@ def main() -> int:
     timed("train_config", phase_train_config)
     timed("variants", phase_variants, int8_eval, convs, main_res)
     timed("arena", phase_arena, model_path)
+    go = phase_go(convs)
+    walls.update(go["walls"])
 
     head = rows[0]  # child stats: the most rows of any gather per level
     kernels = [{

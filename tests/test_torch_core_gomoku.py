@@ -49,9 +49,8 @@ def test_board_hash_matches():
 def test_registry():
     env = registry.create_game("gomoku", 9)
     assert env.num_actions == 81
-    for name in ("go", "chess"):
-        with pytest.raises(NotImplementedError):
-            registry.create_game(name)
+    with pytest.raises(NotImplementedError):
+        registry.create_game("chess")
     assert registry.create_game("gomoku", 15, use_renju=True).use_renju
 
 

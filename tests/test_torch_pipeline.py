@@ -241,8 +241,7 @@ def test_train_cli_runs_shipped_config_cut_to_depth(tmp_path):
     assert entry["moves"] == 8 and np.isfinite(entry["loss"])
 
 
-@pytest.mark.parametrize("argv", [["--game", "go", "--board-size", "9"],
-                                  ["--model", "randwire"],
+@pytest.mark.parametrize("argv", [["--model", "randwire"],
                                   ["--game", "chess"]])
 def test_train_cli_refuses_unported_paths(argv, tmp_path):
     with pytest.raises(NotImplementedError):
