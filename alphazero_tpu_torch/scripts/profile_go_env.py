@@ -105,16 +105,13 @@ def env_wave(env, roots, wave: int = 16, reps: int = 5, gen=None) -> dict:
             "syncs_per_wave": sum("synchroniz" in str(c.message) for c in caught)}
 
 
-def profile_size(n: int, roots: int, wave: int, plies: int, reps: int,
-                 top: int) -> dict:
+def profile_wave(env, starts, wave: int, reps: int, top: int, gen) -> dict:
+    """``env_wave`` from ``starts``, then one wave under ``torch.profiler``:
+    its device time, kernel launches, and the top kernels and operators by
+    device and by host time (any env with arena rows)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from alphazero_tpu_torch.games.go import GoEnv
-
-    env = GoEnv(board_size=n)
-    gen = torch.Generator(device="cuda").manual_seed(n)
-    starts = random_playouts(env, roots, plies, gen)
     res = env_wave(env, starts, wave, reps, gen)
     one_wave = _wave(env, starts, wave, gen)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -134,8 +131,7 @@ def profile_size(n: int, roots: int, wave: int, plies: int, reps: int,
                 for e in sorted(es, key=key, reverse=True)[:top]]
 
     return {
-        "card": torch.cuda.get_device_name(0), "board": n, **res,
-        "roots_plies": f"0-{plies}", "profiled_wave_s": wall,
+        "card": torch.cuda.get_device_name(0), **res, "profiled_wave_s": wall,
         "device_ms": sum(dev_us(e) for e in kernels) / 1e3,
         "kernel_launches": sum(e.count for e in kernels),
         "op_calls": sum(e.count for e in ops),
@@ -143,6 +139,19 @@ def profile_size(n: int, roots: int, wave: int, plies: int, reps: int,
         "top_ops_by_device": rows_of(ops, dev_us),
         "top_ops_by_host": rows_of(ops, lambda e: e.self_cpu_time_total),
     }
+
+
+def profile_size(n: int, roots: int, wave: int, plies: int, reps: int,
+                 top: int) -> dict:
+    import torch
+
+    from alphazero_tpu_torch.games.go import GoEnv
+
+    env = GoEnv(board_size=n)
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    starts = random_playouts(env, roots, plies, gen)
+    return {"board": n, "roots_plies": f"0-{plies}",
+            **profile_wave(env, starts, wave, reps, top, gen)}
 
 
 def main(argv=None):

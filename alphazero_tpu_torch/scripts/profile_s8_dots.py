@@ -111,6 +111,16 @@ def go_cases():
                                     ("stem_8", 72, "im2col"))]
 
 
+def chess_cases():
+    """``s8_mm`` at the int8 trunk's shapes on chess: one chunk of 512
+    boards of 8x8, the 3x3 conv in im2col form and the 18-plane stem (K =
+    162) as the executor's im2col hands it over (a 176-byte pitch)."""
+    s8 = torch.int8
+    return [Case("s8_mm", f"chess_{name}", s8, (512 * 64, K), (K, 64), layout=layout)
+            for name, K, layout in (("conv3x3_64", 576, "dense"),
+                                    ("stem_18", 162, "im2col"))]
+
+
 def multi_prologue_cases():
     """``s8_mm_multi`` on one tile of 128 rows, 5 taps and 1: the launch,
     the image of ``b`` and one tile's product, against the probe case."""

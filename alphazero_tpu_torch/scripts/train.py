@@ -12,7 +12,10 @@ with checkpoints and ``history.json`` under ``--checkpoint-dir``.
     python -m alphazero_tpu_torch.scripts.train --game go --board-size 9 \
         --komi 7.5          # or --config config/go_9x9.json
 
-Not ported yet, and refused: chess and ``--model randwire``.
+    python -m alphazero_tpu_torch.scripts.train --game chess --board-size 8
+                            # or --config config/chess.json
+
+Not ported yet, and refused: ``--model randwire``.
 """
 from __future__ import annotations
 

@@ -7,7 +7,9 @@ device, and regenerates observations with ``env.observation`` when it
 samples.  Augmentation applies one of the 8 board symmetries to each
 sample: ``rot90``/``flip`` on the planes, grouped by symmetry, and a static
 index permutation of the policy that leaves trailing non-spatial actions
-(Go's pass) where they are.
+(Go's pass) where they are.  Chess has no board symmetry (pawns move one
+way, castling belongs to one side, and its 4,672 actions are 73 move types
+a from-square), so its samples are never augmented (``has_dihedral``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from alphazero_tpu_torch.core.types import GameType
 
 
 @dataclasses.dataclass
@@ -114,13 +118,22 @@ def augment(obs: torch.Tensor, policy: torch.Tensor, syms: torch.Tensor,
     return obs_aug, pol_aug
 
 
+def has_dihedral(env) -> bool:
+    """Whether the 8 board symmetries map the env's positions and policies
+    onto equivalent ones: Gomoku and Go, not chess.  (The JAX sampler
+    augments chess too: it turns the planes and permutes only policy
+    entries 0-63, the 73 move types of square a1.)"""
+    return env.game_type != GameType.CHESS
+
+
 def sample(buffer: ReplayBuffer, env, generator: Optional[torch.Generator],
            batch_size: int, augment_symmetries: bool = True,
            idx: Optional[torch.Tensor] = None,
            syms: Optional[torch.Tensor] = None) -> Batch:
     """Uniform sample with observation regeneration and a random symmetry
     per sample.  ``idx`` [B] and ``syms`` [B], where given, replace the
-    draws (tests use them to match the JAX sampler)."""
+    draws (tests use them to match the JAX sampler).  Envs without board
+    symmetry (``has_dihedral``) are sampled as stored."""
     dev = buffer.policy.device
     if idx is None:
         idx = torch.randint(0, max(buffer.size, 1), (batch_size,),
@@ -129,7 +142,7 @@ def sample(buffer: ReplayBuffer, env, generator: Optional[torch.Generator],
     obs = env.observation(buffer.states.map(lambda x: x[idx]))
     policy = buffer.policy[idx]
     value = buffer.value[idx]
-    if augment_symmetries:
+    if augment_symmetries and has_dihedral(env):
         if syms is None:
             syms = torch.randint(0, 8, (batch_size,), generator=generator,
                                  device=dev)

@@ -23,8 +23,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      around every tile edge, several rounds of the persistent grid, both
      routes of s8_mm and of s8_mm_multi (one tap also held equal to s8_mm),
      both dtypes of chained_dot, -128 among the values, strided, misaligned
-     and pitched inputs; then s8_mm at the int8 trunk's shapes and the
-     probes' shapes, s8_mm_multi at the probe's, a chunk's and a tiled-route
+     and pitched inputs; then s8_mm at the int8 trunk's shapes (a chunk of
+     Gomoku, Go and chess boards) and the probes' shapes, s8_mm_multi at the probe's, a chunk's and a tiled-route
      shape (and on one tile of rows), chained_dot (R=8) and tiled_mm at the
      probes' shapes through scripts/profile_s8_dots.run_case (s8 bit for
      bit, bf16 within its stated tolerance); with CUDA-event times of the
@@ -40,13 +40,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      s8_mm were launched, s8_mm exactly as often as the chunk count
      predicts; prints gather launches a move;
      [w1_main]: the sequential search (W=1) at the shipped config's width,
-     B=256, 800 simulations, int8 executor, 2 moves: the same checks, s8_mm
-     exactly 13 x (1 + 800) launches a move, eval and search ms a
-     simulation; [reuse_base] and [reuse_main]: 2 greedy moves (cut from 3
-     with the Go phases) at B=1024, W=16, 800 simulations without and with
-     tree reuse (topup): fresh
-     simulations a move (800, then fewer), every live root at 800 visits
-     or more, moves/s of both and [main]'s; every main path records the
+     B=256, 400 simulations (cut from 800 with the chess phases), int8
+     executor, 2 moves: the same checks, s8_mm exactly 13 x (1 + 400)
+     launches a move, eval and search ms a simulation; [reuse_base] and
+     [reuse_main]: 2 greedy moves (cut from 3 with the Go phases) at
+     B=1024, W=16, 192 simulations (cut from 800 with the chess phases)
+     without and with tree reuse (topup): fresh simulations a move (192,
+     then fewer), every live root at 192 visits or more, moves/s of both
+     and [main]'s; every main path records the
      kernel calls of its warm-up move, and [reuse_main] of one more
      untimed move that re-roots, and holds each distinct signature against
      its plain version, bit for bit;
@@ -68,8 +69,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      equal); the card's kernel calls of every case held against their
      plain versions;
   9. training at the flagship width (6x64 SE-ResNet, 15x15): the learner
-     on one fixed batch of 1024, 3 AdamW steps on the card against the
-     same on the CPU, in float32 (TF32 off) and in bf16 compute, with the
+     on one fixed batch of 1024, 2 AdamW steps (cut from 3 with the chess
+     phases) on the card against the same on the CPU, in float32 (TF32 off) and in bf16 compute, with the
      limits printed beside the differences; 30 steps on the card (the
      loss must fall; train steps/s); then the Pipeline with the int8
      executor from the flagship weights for 2 iterations at a reduced
@@ -78,37 +79,65 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      parameters changed, a checkpoint restored bit for bit, history.json
      written; actor and learner seconds, moves/s, peak device memory;
      [train_config]: scripts/train.py --config on config/gomoku_15x15.json
-     cut in depth only (printed): 2 iterations of 256 games, W=1, its
+     cut in depth only (printed): 2 iterations of 256 games and 4 moves
+     (cut from 8 with the chess phases), W=1, its
      GroupNorm net; every distinct gather call held against its plain
      version, checkpoints and finite losses;
  10. [variants]: Renju, Omok and pro-long on the card against the CPU,
      exactly, at 4,096 random-playout positions (forbidden_map, legal_mask,
-     step); then Renju self-play as [main] (B=1024, W=16, 800 simulations,
-     int8) from 20 policy-sampled plies, 2 moves, with the forbidden
+     step); then Renju self-play as [main] (B=1024, W=16, 192 simulations,
+     cut from 800 with the chess phases, int8) from 20 policy-sampled
+     plies, 2 moves, with the forbidden
      points among the roots, legal_mask ms a wave and moves/s beside
      [main]'s; its kernel calls held against their plain versions;
  11. [arena]: a 7x7 play_match_sides (one side with tree reuse) and
      play_match_host on the card against the CPU (winners and final boards
      equal); the flagship (BN-folded bf16, 128 simulations) against the four
-     anchors, 16 games each, Bradley-Terry pinned at uniform_mcts_256 =
-     1500, at least 12 of 16 against uniform_mcts_16; scripts/evaluate.py
-     as a subprocess, its JSON keys equal to the JAX CLI's; kernel calls
-     held against their plain versions;
+     anchors, 8 games each (cut from 16), Bradley-Terry pinned at
+     uniform_mcts_256 = 1500, at least three quarters of the games against
+     uniform_mcts_16; scripts/evaluate.py as a subprocess, its JSON keys
+     equal to the JAX CLI's; kernel calls held against their plain versions;
  12. Go (slice 9): [go_exact] 4,096 random-playout 9x9 positions (0-120
      plies) and 1,024 at 19x19 (0-240), played on the card, against the
      CPU exactly (masks, observations, both rule sets' scores with and
      without dead stones, ownership, hashes, arena rows, one more step);
      [go_search] card vs CPU at 9x9 (B=64, 128 simulations, W=16, W=1 and
      W=1 with a 256-entry table); [go_main] (models_zoo/go9, int8 with
-     rollout calibration) and [go19_main] (a fresh 6x64 net at 19x19) as
-     [main] at B=1024, W=16, 800 simulations, 2 moves, with one wave's env
+     rollout calibration, 800 simulations) and [go19_main] (a fresh 6x64
+     net at 19x19, 192 simulations, cut from 800) as [main] at B=1024,
+     W=16, 2 moves, with one wave's env
      ms (step, legal_mask, observation) and host syncs; [go_train_config]:
-     config/go_9x9.json cut in depth (2 iterations, 16 moves, 64
-     simulations, 4 train steps); [go_arena]: go9 (BN-folded bf16, 128
-     simulations) against uniform_mcts_16/64/256, 16 games each, at least 12
-     against uniform_mcts_16, Bradley-Terry with the anchors' round-robin
-     of docs/train_zoo_go9.json, and scripts/evaluate.py --game go;
- 13. summary: one JSON line of kernels, then the final status line.
+     config/go_9x9.json cut in depth (2 iterations, 4 moves (cut from 16),
+     64 simulations, 4 train steps); [go_arena]: go9 (BN-folded bf16, 64
+     simulations, cut from 128) against uniform_mcts_16/64/256, 8 games
+     each (cut from 16), at least three quarters against uniform_mcts_16, Bradley-Terry
+     with the anchors' round-robin of docs/train_zoo_go9.json, and
+     scripts/evaluate.py --game go;
+ 13. chess (slice 10): [chess_exact] 4,096 standard lanes, 1,024 each of
+     Chess960 numbers 0, 333 and 959 and 256 king-and-rook endings, 256
+     random plies drawn on the card, card against CPU after every ply
+     (every ChessState field; masks, planes, position hash and arena rows
+     at intervals), with counts of the rules met (checks, mates,
+     stalemates, en passant, castling, promotions, repetition, 50-move and
+     material draws), then perft on the card against the published totals
+     (start position depth 4, Kiwipete 3, positions 3 to 6); [chess_search]
+     card vs CPU (B=64, 128 simulations, W=16 and W=1, each with a
+     256-entry table: counts, actions, hits, stores) and the mate in one
+     (Qh5#) at W=16 and W=1; [chess_main] models_zoo/chess_dev on the int8
+     executor as [main] (B=1024, W=16, 800 simulations, 2 moves; s8_mm
+     exactly 13 x 1,602 a move) and one wave's env ms and host syncs on
+     1,024 mid-game roots (40 random plies) x 16; [chess_train_config]
+     config/chess.json cut in depth (2 iterations of 16 moves, 64
+     simulations, 4 train steps), its last checkpoint reloaded bit for
+     bit; [chess_arena] chess_dev (BN-folded bf16, 128 simulations)
+     against uniform_mcts_16, 16 games, 4 opening plies, T=0.1, 160 plies
+     (at most 2 losses and more wins than losses), and scripts/evaluate.py
+     --game chess cut to 40 plies (keys equal to the JAX CLI's);
+     [chess_cli] scripts/self_play.py --game chess (chess_dev int8 and
+     folded), scripts/train.py --game chess and
+     scripts/tournament.py --game chess, in process, cut in depth; every
+     path's kernel calls held against their plain versions;
+ 14. summary: one JSON line of kernels, then the final status line.
 
 gather_rows times are taken with warm L2 (the search re-reads the same
 arenas within a wave); its ``bound_ms`` counts the bytes the call must move
@@ -443,8 +472,8 @@ def phase_products() -> list:
         if routes != {"resident", "tiled"}:
             raise AssertionError(f"the {kernel} edge cases took only the routes {routes}")
     rows = []
-    for case in (probe.trunk_cases() + probe.go_cases() + probe.probe_cases(chain=8)
-                 + probe.multi_prologue_cases()):
+    for case in (probe.trunk_cases() + probe.go_cases() + probe.chess_cases()
+                 + probe.probe_cases(chain=8) + probe.multi_prologue_cases()):
         row = probe.run_case(case, gen, reps=20, library=_library_for(case))
         log("[kernel] " + json.dumps(row))
         rows.append(row)
@@ -901,12 +930,15 @@ def phase_parity() -> list:
 
 
 def phase_train_config(name: str = "gomoku_15x15.json", tag: str = "train_config",
-                       cuts: dict | None = None) -> dict:
+                       cuts: dict | None = None, reload: bool = False) -> dict:
     """``scripts/train.py --config`` on a copy of ``config/<name>`` cut in
     depth only (printed): the shipped width (its games, its GroupNorm net on
     the raw inference path, W=1), 2 iterations of 8 moves (``cuts``
     overrides), 64 simulations, 4 train steps.  Every distinct gather and
-    s8_mm call of the run is held against its plain version."""
+    s8_mm call of the run is held against its plain version.  With
+    ``reload``, a fresh ``Pipeline`` of the same config restores the last
+    checkpoint: its weights, optimizer state, step and generator must equal
+    the file's bit for bit."""
     import tempfile
 
     from alphazero_tpu_torch.ops.gather_rows import gather_rows
@@ -943,18 +975,42 @@ def phase_train_config(name: str = "gomoku_15x15.json", tag: str = "train_config
         with open(os.path.join(cuts["checkpoint_dir"], "history.json")) as f:
             history = json.load(f)
         files = sorted(os.listdir(cuts["checkpoint_dir"]))
+        reloaded = _reload_checkpoint(cfg_path) if reload else None
     held = _check_recorded(tag, recorded)
     for e in history:
         log(f"[{tag}] iteration: " + json.dumps(e))
     res = {"wall_s": wall, "launches": launches, "files": files,
            "signatures": len(held)}
+    if reload:
+        res["checkpoint_reload_bit_equal"] = reloaded
     log(f"[{tag}] " + json.dumps(res))
+    if reload and not reloaded:
+        raise AssertionError(f"config/{name}'s last checkpoint did not reload bit for bit")
     if launches["gather_rows"] <= 0:
         raise AssertionError(f"config/{name}'s actor launched no gather_rows")
     if not (len(history) == 2 and all(np.isfinite(e["loss"]) for e in history)
             and "ckpt_1.pt" in files):
         raise AssertionError(f"config/{name} did not train: {history}, {files}")
     return res
+
+
+def _reload_checkpoint(cfg_path: str) -> bool:
+    """A fresh ``Pipeline`` of the config at ``cfg_path`` restores its last
+    checkpoint: weights, optimizer state, step and generator equal the
+    file's, bit for bit."""
+    from alphazero_tpu_torch.training.pipeline import Pipeline, PipelineConfig
+    from alphazero_tpu_torch.utils.config import load_config
+
+    fresh = Pipeline(load_config(PipelineConfig, cfg_path))
+    it = fresh.restore_checkpoint()
+    saved = torch.load(fresh._checkpoint_path(it), map_location="cpu", weights_only=True)
+    sd = fresh.state.module.state_dict()
+    opt = fresh.state.optimizer.state_dict()["state"]
+    return (fresh.state.step == saved["step"]
+            and all(torch.equal(sd[k].cpu(), v) for k, v in saved["model"].items())
+            and all(torch.equal(opt[i][n].cpu(), v)
+                    for i, st in saved["optimizer"]["state"].items() for n, v in st.items())
+            and torch.equal(fresh.generator.get_state(), saved["generator"]))
 
 
 def _playout_states(env, B: int, max_plies: int, gen) -> object:
@@ -1043,8 +1099,8 @@ def _policy_plies(env, eval_fn, B: int, plies: int, seed: int):
     return st
 
 
-def phase_variants(int8_eval, convs: int, main_res: dict) -> dict:
-    """Renju self-play at the main path's full width: B=1024, W=16, 800
+def phase_variants(int8_eval, convs: int, main_res: dict, sims: int = 800) -> dict:
+    """Renju self-play at the main path's full width: B=1024, W=16, ``sims``
     simulations, K=32, the flagship's int8 executor, from positions after
     20 policy-sampled plies (so forbidden points exist), 2 moves (the
     second timed), through ``phase_main_path`` (its checks, launch counts
@@ -1076,10 +1132,10 @@ def phase_variants(int8_eval, convs: int, main_res: dict) -> dict:
     leaves = free.step(rep, torch.multinomial(w.float(), 1, generator=gen)[:, 0])
     mask_ms = {"renju": cuda_ms(lambda: renju.legal_mask(leaves), reps=10),
                "freestyle": cuda_ms(lambda: free.legal_mask(leaves), reps=10)}
-    res = phase_main_path(renju, int8_eval, "int8", sims=800, moves=2,
+    res = phase_main_path(renju, int8_eval, "int8", sims=sims, moves=2,
                           s8_convs=convs, B=B, W=W, tag="variants",
                           start_states=starts)
-    waves = 800 // W + 1
+    waves = sims // W + 1
     summary = {
         "renju_moves_per_s": res["timed_moves_per_s"],
         "main_moves_per_s": main_res["timed_moves_per_s"],
@@ -1122,7 +1178,7 @@ def phase_arena(model_path, games: int = 16, cand_sims: int = 128) -> dict:
        games each, 6 mirrored opening plies, T=0.1, 225 moves at most;
        Bradley-Terry with uniform_mcts_256 at 1500, from this run's matches
        alone and with the anchors' round-robin in docs/anchor_table.json.
-       Fails unless the flagship takes 12 of 16 games (three quarters)
+       Fails unless the flagship takes three quarters of the games
        against uniform_mcts_16.
     3. ``scripts/evaluate.py`` as a subprocess: its JSON keys equal the
        JAX CLI's.
@@ -1220,7 +1276,7 @@ def phase_arena(model_path, games: int = 16, cand_sims: int = 128) -> dict:
 
     cmd = [sys.executable, "-m", "alphazero_tpu_torch.scripts.evaluate",
            "--model-a", os.path.join("models_zoo", "flagship_gomoku15"),
-           "--num-games", "8", "--simulations", "64"]
+           "--num-games", "2", "--simulations", "16"]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
@@ -1369,9 +1425,9 @@ def phase_go_search() -> list:
     return rows
 
 
-def phase_go_main(env, eval_fn, convs: int, roots, tag: str) -> dict:
+def phase_go_main(env, eval_fn, convs: int, roots, tag: str, sims: int = 800) -> dict:
     """Go self-play at full width through ``phase_main_path`` (B=1024,
-    W=16, 800 simulations, K=32, recycle on, int8 executor, 2 moves, the
+    W=16, ``sims`` simulations, K=32, recycle on, int8 executor, 2 moves, the
     second timed: its checks, exact ``s8_mm`` launches and recorded kernel
     calls), then one wave's env work on the card from mid-game roots
     (``profile_go_env.env_wave``: 1,024 [go_exact] positions, 16 leaves
@@ -1379,10 +1435,10 @@ def phase_go_main(env, eval_fn, convs: int, roots, tag: str) -> dict:
     ``legal_mask`` and ``observation``, and host syncs)."""
     from alphazero_tpu_torch.scripts.profile_go_env import env_wave
 
-    res = phase_main_path(env, eval_fn, "int8", sims=800, moves=2,
+    res = phase_main_path(env, eval_fn, "int8", sims=sims, moves=2,
                           s8_convs=convs, tag=tag)
     wave = env_wave(env, roots)
-    waves = 800 // 16 + 1
+    waves = sims // 16 + 1
     summary = {"moves_per_s": res["timed_moves_per_s"],
                "eval_ms_per_wave": res["eval_ms_per_wave"],
                "env_ms_per_wave": wave["ms_per_wave"], "env_ms": wave["ms"],
@@ -1403,7 +1459,7 @@ def phase_go_arena(games: int = 16, cand_sims: int = 128) -> dict:
     shape of ``tools/train_zoo_go9.py`` cut in games only); Bradley-Terry
     with uniform_mcts_256 at 1500 over this run's matches and the
     anchors' round-robin of ``docs/train_zoo_go9.json``.  Fails unless
-    go9 takes 12 of 16 games against uniform_mcts_16.  Then
+    go9 takes three quarters of the games against uniform_mcts_16.  Then
     ``scripts/evaluate.py --game go`` as a subprocess: its JSON keys equal
     the JAX CLI's.  The first match's kernel calls are held against their
     plain versions."""
@@ -1470,7 +1526,7 @@ def phase_go_arena(games: int = 16, cand_sims: int = 128) -> dict:
     # Its keys only are checked: 40 plies (cut from 162) keep it short.
     cmd = [sys.executable, "-m", "alphazero_tpu_torch.scripts.evaluate", "--game", "go",
            "--board-size", "9", "--model-a", os.path.join("models_zoo", "go9"),
-           "--num-games", "8", "--simulations", "64", "--max-moves", "40"]
+           "--num-games", "2", "--simulations", "16", "--max-moves", "40"]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
@@ -1522,12 +1578,447 @@ def phase_go(convs: int) -> dict:
     torch.cuda.synchronize()
     log(f"[go19_main] fresh AZResNet() 6x64; calibration: {tuple(calib.shape)} "
         f"rollout observations in {time.perf_counter() - t0:.2f} s")
+    log("[go19_main] depth cut: 192 simulations (was 800)")
     out["go19_main"] = timed("go19_main", phase_go_main, env19, int8_go19, convs,
-                             positions[19], "go19_main")
+                             positions[19], "go19_main", sims=192)
+    # Cut with the chess phases: 4 moves an iteration (was 16); the ladder 8
+    # games an anchor (was 16, the gate still three quarters of them) and
+    # go9 at 64 simulations (was 128).  The lanes of a match play in
+    # parallel, so its time follows the searches' depth, not the games
+    # (go9 at 64 simulations took 26-28 s against uniform_mcts_64 where 128
+    # took 46-51 s, in one call); a game stopped short of its end would
+    # count as a draw, so the plies are not cut.
+    log("[go_train_config] depth cut: 4 moves an iteration (was 16); "
+        "[go_arena] 8 games an anchor (was 16), go9 at 64 simulations (was 128)")
     out["train_config"] = timed("go_train_config", phase_train_config, "go_9x9.json",
-                                "go_train_config", {"selfplay.max_moves": 16})
-    out["arena"] = timed("go_arena", phase_go_arena)
+                                "go_train_config", {"selfplay.max_moves": 4})
+    out["arena"] = timed("go_arena", phase_go_arena, games=8, cand_sims=64)
     log("[go] phase wall seconds: " + json.dumps(walls))
+    out["walls"] = walls
+    return out
+
+
+# ---- Chess (slice 10) ------------------------------------------------------
+
+_CHESS_FIELDS = ("board", "to_play", "castling", "rook_start", "king_start",
+                 "ep_square", "halfmove", "move_count", "terminal", "winner",
+                 "in_check", "legal", "hash", "history", "rep_count")
+CHESS_DEV_PATH = os.path.join(ROOT, "models_zoo", "chess_dev")
+# Published perft totals (chessprogramming wiki; tests/test_chess.py).
+_PERFT = (
+    ("start", "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w KQkq - 0 1", 4, 197_281),
+    ("kiwipete", "r3k2r/p1ppqpb1/bn2pnp1/3PN3/1p2P3/2N2Q1p/PPPBBPPP/R3K2R w KQkq - 0 1",
+     3, 97_862),
+    ("pos3", "8/2p5/3p4/KP5r/1R3p1k/8/4P1P1/8 w - - 0 1", 4, 43_238),
+    ("pos4", "r3k2r/Pppp1ppp/1b3nbN/nP6/BBP1P3/q4N2/Pp1P2PP/R2Q1RK1 w kq - 0 1", 3, 9_467),
+    ("pos5", "rnbq1k1r/pp1Pbppp/2p5/8/2B5/8/PPP1NnPP/RNBQK2R w KQ - 1 8", 3, 62_379),
+    ("pos6", "r4rk1/1pp1qppp/p1np1n2/2b1p1B1/2B1P1b1/P1NP1N2/1PP1QPPP/R4RK1 w - - 0 10",
+     3, 89_890))
+
+
+def _chess_perft(env, st, depth: int) -> int:
+    for d in range(depth):
+        legal = env.legal_mask(st)
+        if d == depth - 1:
+            return int(legal.sum())
+        b, a = torch.nonzero(legal, as_tuple=True)
+        st = env.step(st.map(lambda x: x[b]), a)
+
+
+def _chess_move_kinds(st, acts):
+    """(castlings, en-passant captures, promotions) among ``acts`` on the
+    live lanes of ``st`` (CPU)."""
+    from alphazero_tpu_torch.games.chess import _tables
+    from alphazero_tpu_torch.games.chess_tables import KING, PAWN
+
+    tb = _tables("cpu")
+    B = acts.shape[0]
+    live = ~st.terminal
+    frm, mt = acts // 73, acts % 73
+    flat = st.board.reshape(B, 64).long()
+    p = flat.gather(1, frm[:, None])[:, 0]
+    dr = torch.where(mt >= 64, torch.where(st.to_play == 0, 1, -1), tb["dr"][mt])
+    dc = tb["dc"][mt]
+    to = (frm + 8 * dr + dc).clamp(0, 63)
+    tgt = flat.gather(1, to[:, None])[:, 0]
+    pawn = live & (p >= 0) & (p % 6 == PAWN)
+    castle = live & (p >= 0) & (p % 6 == KING) & (tgt >= 0) & (tgt // 6 == p // 6)
+    ep = pawn & (dc != 0) & (to == st.ep_square.long())
+    promo = pawn & ((to // 8 == 0) | (to // 8 == 7))
+    return int(castle.sum()), int(ep.sum()), int(promo.sum())
+
+
+def phase_chess_exact(plies: int = 256) -> dict:
+    """Chess on the card against the CPU, exactly: 4,096 standard lanes,
+    1,024 lanes each of Chess960 numbers 0, 333 and 959, and 256 lanes of
+    a king-and-rook ending whose 50-move clock stands at 60, played
+    ``plies`` random plies (legal moves drawn on the card, the same on both
+    devices; terminal lanes frozen), every ``ChessState`` field compared
+    after every ply; the legal mask, the 18 planes (standard and Chess960
+    flag, bit for bit) and ``position_hash`` every 8 plies, the arena-row
+    round trip on the card every 32.  Prints what the playouts met: checks,
+    checkmates, stalemates, en-passant captures, castlings, promotions,
+    draws by repetition, by the 50-move rule and by material.  Then perft
+    on the card against the published totals."""
+    from alphazero_tpu_torch.core.types import cat_states
+    from alphazero_tpu_torch.games import chess_fen
+    from alphazero_tpu_torch.games.chess import ChessEnv, _insufficient_material
+
+    env, env960 = ChessEnv(), ChessEnv(chess960_position=0)
+    cpu = cat_states([ChessEnv(chess960_position=n).init(B, device="cpu")
+                      for n, B in ((None, 4096), (0, 1024), (333, 1024), (959, 1024))]
+                     + [chess_fen.state_from_fen(
+                         env, ["k7/8/8/8/8/8/8/K6R w - - 60 80"] * 256, device="cpu")])
+    gpu = cpu.map(lambda x: x.cuda())
+    B = cpu.batch_size
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    kinds = dict(checks=0, castlings=0, ep_captures=0, promotions=0)
+    differs = {}
+    t0 = time.perf_counter()
+
+    def packed(st):  # every field's bytes, one row a lane
+        return torch.cat([getattr(st, f).reshape(B, -1).contiguous().view(torch.uint8)
+                          for f in _CHESS_FIELDS], 1)
+
+    def compare(where, full):
+        if not torch.equal(packed(gpu).cpu(), packed(cpu)):
+            for f in _CHESS_FIELDS:
+                if not torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)):
+                    differs.setdefault(f, where)
+        if not full:
+            return
+        pairs = [("legal_mask", env.legal_mask(gpu), env.legal_mask(cpu)),
+                 ("observation", env.observation(gpu).view(torch.int16),
+                  env.observation(cpu).view(torch.int16)),
+                 ("observation960", env960.observation(gpu).view(torch.int16),
+                  env960.observation(cpu).view(torch.int16)),
+                 ("position_hash", env.position_hash(gpu), env.position_hash(cpu))]
+        for name, g, c in pairs:
+            if not torch.equal(g.cpu(), c):
+                differs.setdefault(name, where)
+
+    for ply in range(plies):
+        compare(ply, ply % 8 == 0)
+        if ply % 32 == 0:
+            back = env.from_arena_rows(*env.arena_rows(gpu))
+            if not all(torch.equal(getattr(back, f), getattr(gpu, f)) for f in _CHESS_FIELDS):
+                differs.setdefault("arena_rows", ply)
+        w = env.legal_mask(gpu).float()
+        w = torch.where(w.sum(1, keepdim=True) > 0, w, torch.ones_like(w))
+        acts = torch.multinomial(w, 1, generator=gen)[:, 0]
+        c, e, p = _chess_move_kinds(cpu, acts.cpu())
+        kinds["castlings"] += c
+        kinds["ep_captures"] += e
+        kinds["promotions"] += p
+        cpu, gpu = env.step(cpu, acts.cpu()), env.step(gpu, acts)
+        kinds["checks"] += int((cpu.in_check & ~cpu.terminal).sum())
+    compare(plies, True)
+    torch.cuda.synchronize()
+    played_s = time.perf_counter() - t0
+    left = env._legal_bits(cpu.board, cpu.to_play, cpu.castling, cpu.rook_start,
+                           cpu.king_start, cpu.ep_square)[0]
+    term = cpu.terminal
+    ends = dict(
+        checkmates=int((term & (cpu.winner >= 0)).sum()),
+        stalemates=int((term & (left == 0).all(1) & ~cpu.in_check).sum()),
+        repetition_draws=int((term & (cpu.rep_count >= 3)).sum()),
+        fifty_move_draws=int((term & (cpu.halfmove >= 100)).sum()),
+        material_draws=int((term & _insufficient_material(cpu.board)).sum()),
+        live=int((~term).sum()))
+    row = {"lanes": B, "plies": plies, "played_and_compared_s": played_s,
+           **kinds, **ends, "equal": not differs, "first_difference": differs}
+    log("[chess_exact] card vs CPU: " + json.dumps(row))
+    if differs:
+        raise AssertionError(f"chess differs between the card and the CPU: {differs}")
+    if not all(kinds.values()) or not all(v for k, v in ends.items() if k != "live"):
+        raise AssertionError(f"the playouts missed a rule: {kinds} {ends}")
+    perft = []
+    for name, fen, depth, want in _PERFT:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = _chess_perft(env, chess_fen.state_from_fen(env, fen), depth)
+        perft.append({"position": name, "depth": depth, "nodes": got, "published": want,
+                      "s": time.perf_counter() - t1})
+        log("[chess_exact] perft on the card: " + json.dumps(perft[-1]))
+        if got != want:
+            raise AssertionError(f"perft {name} depth {depth}: {got}, published {want}")
+    return {"playouts": row, "perft": perft}
+
+
+def phase_chess_search() -> list:
+    """The search on chess, card against CPU: B=64 live roots (0 to 40
+    random plies on the CPU), 128 simulations, the uniform evaluator with
+    value 0, no noise, K=32, at W=16 and at W=1, both with a 256-entry
+    table: equal visit counts, actions, table hits and stores.  Then the
+    mate in one of ``tests/test_search_multigame.py`` (Qh5#) on the card,
+    W=16 and W=1, 200 simulations.  The card's kernel calls are held
+    against their plain versions."""
+    from alphazero_tpu_torch.core.types import where_lanes
+    from alphazero_tpu_torch.games import chess_fen
+    from alphazero_tpu_torch.games.chess import ChessEnv
+    from alphazero_tpu_torch.mcts.search import MCTSConfig, make_host_search, select_action
+    from alphazero_tpu_torch.models.stub import make_uniform_eval_fn
+
+    env = ChessEnv()
+    gen = torch.Generator().manual_seed(52)
+    roots = env.init(96, device="cpu")
+    plies = torch.arange(96) % 41
+    for ply in range(40):
+        w = env.legal_mask(roots).float()
+        w = torch.where(w.sum(1, keepdim=True) > 0, w, torch.ones_like(w))
+        acts = torch.multinomial(w, 1, generator=gen)[:, 0]
+        roots = where_lanes(plies > ply, env.step(roots, acts), roots)
+    live = torch.nonzero(~roots.terminal)[:64, 0]
+    if live.numel() < 64:
+        raise AssertionError("fewer than 64 live [chess_search] roots")
+    roots = roots.map(lambda x: x[live])
+    uni = make_uniform_eval_fn(env.num_actions)
+    rows, rec = [], _KernelCalls()
+    for name, wave in (("W=16 table 256", 16), ("W=1 table 256", 1)):
+        cfg = MCTSConfig(num_simulations=128, max_children=32, dirichlet_epsilon=0.0,
+                         wave_size=wave, tt_size=256)
+        run = make_host_search(env, uni, cfg)
+        with rec:
+            gpu = run(roots.map(lambda x: x.cuda()))
+        cpu = run(roots)
+        g, c = gpu.tree.tt, cpu.tree.tt
+        row = {"case": name,
+               "differing_counts": int((gpu.visit_counts.cpu() != cpu.visit_counts).sum()),
+               "same_actions": bool(torch.equal(
+                   select_action(None, gpu.visit_counts, 0.0).cpu(),
+                   select_action(None, cpu.visit_counts, 0.0))),
+               "max_depth": int(cpu.tree.depth.max()),
+               "hits": int(c.hits.sum()), "stores": int(c.stores.sum()),
+               "table_equal": bool(torch.equal(g.hits.cpu(), c.hits)
+                                   and torch.equal(g.stores.cpu(), c.stores))}
+        log("[chess_search] card vs CPU: " + json.dumps(row))
+        if not (row["differing_counts"] == 0 and row["same_actions"]
+                and row["table_equal"] and row["stores"] > 0):
+            raise AssertionError(f"chess searches differ between the card and the CPU: {row}")
+        rows.append(row)
+    s = chess_fen.state_from_fen(
+        env, "rnbqkbnr/ppppp2p/5p2/6p1/4P3/8/PPPP1PPP/RNBQKBNR w KQkq - 0 3")
+    mate = chess_fen.san_to_action(env, s, "Qh5#")
+    for wave in (16, 1):
+        cfg = MCTSConfig(num_simulations=200, dirichlet_epsilon=0.0, wave_size=wave)
+        with rec:
+            out = make_host_search(env, uni, cfg)(s)
+        best = int(out.visit_counts[0].argmax())
+        row = {"case": f"mate in one W={wave}", "best": best, "mate": mate,
+               "visits_to_mate": int(out.visit_counts[0, mate])}
+        log("[chess_search] " + json.dumps(row))
+        if best != mate:
+            raise AssertionError(f"the search missed Qh5#: {row}")
+        rows.append(row)
+    _check_recorded("chess_search", rec, each=False)
+    return rows
+
+
+def phase_chess_main(env, eval_fn, convs: int) -> dict:
+    """Chess self-play at full width through ``phase_main_path`` (B=1024,
+    W=16, 800 simulations, K=32, recycle on, chess_dev on the int8
+    executor, 2 moves from the start, the second timed; ``s8_mm`` exactly
+    13 x 1,602 launches a move and every recorded kernel call bit-equal),
+    then one wave's env work on 1,024 mid-game roots (40 random plies on
+    the card) x 16 leaves (``profile_go_env.env_wave``: ms of ``step``,
+    ``legal_mask`` and ``observation``, and host syncs)."""
+    from alphazero_tpu_torch.core.types import where_lanes
+    from alphazero_tpu_torch.scripts.profile_go_env import env_wave
+
+    res = phase_main_path(env, eval_fn, "int8", sims=800, moves=2, s8_convs=convs,
+                          tag="chess_main")
+    if res["launches"]["s8_mm"] != convs * 1602 * 2:
+        raise AssertionError(f"[chess_main] s8_mm launches {res['launches']}, not "
+                             f"{convs} x 1,602 a move")
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    roots = env.init(1024)
+    for _ in range(40):
+        w = env.legal_mask(roots).float()
+        w = torch.where(w.sum(1, keepdim=True) > 0, w, torch.ones_like(w))
+        nxt = env.step(roots, torch.multinomial(w, 1, generator=gen)[:, 0])
+        roots = where_lanes(nxt.terminal, roots, nxt)  # keep every root live
+    wave = env_wave(env, roots)
+    waves = 800 // 16 + 1
+    summary = {"moves_per_s": res["timed_moves_per_s"],
+               "eval_ms_per_wave": res["eval_ms_per_wave"],
+               "env_ms_per_wave": wave["ms_per_wave"], "env_ms": wave["ms"],
+               "env_syncs_per_wave": wave["syncs_per_wave"],
+               "env_leaves": wave["leaves"],
+               "env_s_per_move_est": wave["ms_per_wave"] * waves / 1e3,
+               "gather_launches_per_move": res["gather_launches_per_move"],
+               "s8_mm_launches": res["launches"]["s8_mm"]}
+    log("[chess_main] " + json.dumps(summary))
+    return {"main": res, **summary}
+
+
+def phase_chess_arena(games: int = 16, cand_sims: int = 128) -> dict:
+    """chess_dev as ``scripts/evaluate.py`` loads it (BN-folded bf16) at
+    ``cand_sims`` simulations, W=16, against uniform_mcts_16 through
+    play_match_sides: ``games`` games, 4 mirrored opening plies, T=0.1,
+    160 plies at most (``docs/train_zoo_chess.json``'s match cut in games
+    and plies).  Fails unless chess_dev loses at most 2 games and wins more
+    than it loses.  Then ``scripts/evaluate.py --game chess`` as a
+    subprocess, cut to 40 plies: its JSON keys equal the JAX CLI's.  The
+    match's kernel calls are held against their plain versions."""
+    from alphazero_tpu_torch.core import registry
+    from alphazero_tpu_torch.eval import anchors
+    from alphazero_tpu_torch.eval.arena import play_match_sides
+    from alphazero_tpu_torch.mcts.search import MCTSConfig
+    from alphazero_tpu_torch.ops.gather_rows import gather_rows
+    from alphazero_tpu_torch.scripts.evaluate import load_eval_fn
+
+    env = registry.create_game("chess", 8)
+    cand = (load_eval_fn(CHESS_DEV_PATH, env, "cuda"),
+            MCTSConfig(num_simulations=cand_sims, wave_size=16, dirichlet_epsilon=0.0))
+    log("[chess_arena] depth: " + json.dumps({
+        "games": games, "candidate_simulations": cand_sims, "wave": 16,
+        "opening_plies": 4, "temperature": 0.1, "max_moves": 160}))
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    rec = _KernelCalls()
+    gather_rows.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with rec:
+        res = play_match_sides(env, cand, anchors.make_anchor(env, "uniform_mcts_16"), gen,
+                               games, max_moves=160, temperature=0.1,
+                               opening_random_moves=4, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_recorded("chess_arena", rec, each=False)
+    lanes = res.winner.shape[0]
+    moves = int(res.states.move_count.sum()) - 4 * lanes
+    wa, wb, d = int(res.wins_a), int(res.wins_b), int(res.draws)
+    out = {"match": {"anchor": "uniform_mcts_16", "result": f"+{wa} -{wb} ={d}",
+                     "wall_s": wall, "moves": moves, "moves_per_s": moves / wall,
+                     "plies_max": int(res.states.move_count.max()),
+                     "plies_mean": float(res.states.move_count.float().mean()),
+                     "checkmates": int((res.states.winner >= 0).sum()),
+                     "gather_launches": gather_rows.launches}}
+    log("[chess_arena] chess_dev vs " + json.dumps(out["match"]))
+    if not (wb <= 2 and wa > wb):
+        raise AssertionError(f"chess_dev against uniform_mcts_16: +{wa} -{wb} ={d}")
+    cmd = [sys.executable, "-m", "alphazero_tpu_torch.scripts.evaluate", "--game", "chess",
+           "--board-size", "8", "--model-a", os.path.join("models_zoo", "chess_dev"),
+           "--num-games", "2", "--simulations", "16", "--max-moves", "40"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)} failed: {proc.stderr[-2000:]}")
+    printed = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = _jax_cli_keys(os.path.join("alphazero_tpu", "scripts", "evaluate.py"))
+    out["cli"] = {"printed": printed, "wall_s": time.perf_counter() - t0,
+                  "keys_equal_jax": list(printed) == want}
+    log("[chess_arena] scripts/evaluate.py --game chess: " + json.dumps(out["cli"]))
+    if list(printed) != want:
+        raise AssertionError(f"evaluate.py printed keys {list(printed)}, the JAX CLI {want}")
+    return out
+
+
+def phase_chess_cli() -> dict:
+    """The chess CLIs on the card, in this process, each cut in depth:
+    ``scripts/self_play.py --game chess`` with chess_dev on the int8
+    executor (256 games, 64 simulations, 2 plies; its kernel calls held
+    against their plain versions) and BN-folded (64 games),
+    ``scripts/train.py --game chess`` (a 2x32 net, 64 games of 8 plies, 2
+    train steps), and ``scripts/tournament.py --game chess`` (chess_dev and
+    the uniform player, 2 games, 2 simulations, the CLI's 512 plies)."""
+    import io
+    import shutil
+    import tempfile
+
+    from alphazero_tpu_torch.scripts import self_play as self_play_cli
+    from alphazero_tpu_torch.scripts import tournament as tournament_cli
+    from alphazero_tpu_torch.scripts import train as train_cli
+
+    def run(main, argv):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+        torch.cuda.synchronize()
+        return json.loads(buf.getvalue().strip().splitlines()[-1]), time.perf_counter() - t0
+
+    out, rec = {}, _KernelCalls()
+    chess = ["--game", "chess", "--board-size", "8"]
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, games, extra in (("int8", 256, ["--inference", "int8"]),
+                                    ("folded", 64, ["--inference", "folded"])):
+            with rec if label == "int8" else contextlib.nullcontext():
+                stats, wall = run(self_play_cli.main, chess + [
+                    "--model", CHESS_DEV_PATH, "--num-games", str(games),
+                    "--simulations", "64", "--max-moves", "2",
+                    "--output-dir", os.path.join(tmp, label)] + extra)
+            out[f"self_play_{label}"] = {**stats, "wall_s": wall}
+            log(f"[chess_cli] scripts/self_play.py --inference {label}: "
+                + json.dumps(out[f"self_play_{label}"]))
+            if not (stats["games"] == games and stats["moves"] == 2 * games):
+                raise AssertionError(f"self_play --game chess ({label}): {stats}")
+        _check_recorded("chess_cli self_play int8", rec, each=False)
+        ckpt = os.path.join(tmp, "train")
+        t0 = time.perf_counter()
+        train_cli.main(chess + [
+            "--blocks", "2", "--channels", "32", "--iterations", "1",
+            "--games-per-iteration", "64", "--simulations", "16", "--wave", "16",
+            "--max-moves", "8", "--train-steps", "2", "--train-batch-size", "64",
+            "--replay-capacity", "4096", "--min-replay", "1", "--no-recycle",
+            "--checkpoint-every", "1",
+            "--checkpoint-dir", ckpt])
+        with open(os.path.join(ckpt, "history.json")) as f:
+            (entry,) = json.load(f)
+        out["train"] = {"moves": entry["moves"], "loss": entry["loss"],
+                        "wall_s": time.perf_counter() - t0}
+        log("[chess_cli] scripts/train.py --game chess: " + json.dumps(out["train"]))
+        if not (entry["moves"] == 64 * 8 and np.isfinite(entry["loss"])):
+            raise AssertionError(f"train --game chess did not train: {entry}")
+        zoo = os.path.join(tmp, "zoo")
+        os.makedirs(zoo)
+        shutil.copy(CHESS_DEV_PATH, os.path.join(zoo, "chess_dev.msgpack"))
+        shutil.copy(CHESS_DEV_PATH + ".json", os.path.join(zoo, "chess_dev.msgpack.json"))
+        printed, wall = run(tournament_cli.main, chess + [
+            "--models-dir", zoo, "--include-random", "--games-per-pair", "2",
+            "--simulations", "2", "--output", os.path.join(tmp, "t.json")])
+        out["tournament"] = {"printed": printed, "wall_s": wall}
+        log("[chess_cli] scripts/tournament.py --game chess: " + json.dumps(out["tournament"]))
+        players = sorted(r["player"] for r in printed.get("elo", []))
+        if set(printed) != {"elo", "bt"} or players != ["chess_dev.msgpack", "random"]:
+            raise AssertionError(f"tournament --game chess printed {printed}")
+    return out
+
+
+def phase_chess() -> dict:
+    """Every chess phase in order."""
+    from alphazero_tpu_torch.core import registry
+    from alphazero_tpu_torch.models.io import load_model
+    from alphazero_tpu_torch.models.quant import make_production_eval_fn
+
+    walls, out = {}, {}
+
+    def timed(phase, fn, /, *args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        walls[phase] = round(time.perf_counter() - t0, 1)
+        return res
+
+    out["exact"] = timed("chess_exact", phase_chess_exact)
+    out["search"] = timed("chess_search", phase_chess_search)
+    t0 = time.perf_counter()
+    env = registry.create_game("chess", 8)
+    model, _ = load_model(CHESS_DEV_PATH, env.observation_shape, device="cuda")
+    int8_eval, calib = make_production_eval_fn(
+        env, model, generator=torch.Generator(device="cuda").manual_seed(7))
+    torch.cuda.synchronize()
+    log(f"[chess_main] chess_dev {model.cfg.num_blocks}x{model.cfg.channels}; "
+        f"calibration: {tuple(calib.shape)} rollout observations, calibrated and "
+        f"quantised in {time.perf_counter() - t0:.2f} s")
+    out["chess_main"] = timed("chess_main", phase_chess_main, env, int8_eval,
+                              1 + 2 * model.cfg.num_blocks)
+    out["train_config"] = timed("chess_train_config", phase_train_config, "chess.json",
+                                "chess_train_config", {"selfplay.max_moves": 16},
+                                reload=True)
+    out["arena"] = timed("chess_arena", phase_chess_arena)
+    out["cli"] = timed("chess_cli", phase_chess_cli)
+    log("[chess] phase wall seconds: " + json.dumps(walls))
     out["walls"] = walls
     return out
 
@@ -1692,7 +2183,7 @@ def phase_train(env, model_path) -> dict:
     """The training slice at the flagship width (6x64 SE-ResNet, 15x15).
 
     Learner: the flagship bundle in train mode on one fixed batch of 1024
-    (mid-game observations, random targets from a seed), 3 AdamW steps at
+    (mid-game observations, random targets from a seed), 2 AdamW steps at
     lr 1e-3 on the card and on the CPU, in float32 (TF32 off) and in the
     production policy (bf16 compute, f32 master weights); then 30 steps on
     the card, whose loss must fall, timed.  Pipeline: the int8 executor from
@@ -1717,7 +2208,9 @@ def phase_train(env, model_path) -> dict:
     from alphazero_tpu_torch.training.pipeline import Pipeline, PipelineConfig
 
     t_phase = time.perf_counter()
-    B, A, lr, steps = 1024, env.num_actions, 1e-3, 3
+    # 2 steps on each side (cut from 3 with the chess phases; printed).
+    B, A, lr, steps = 1024, env.num_actions, 1e-3, 2
+    log(f"[train] learner depth cut: {steps} steps on each side (was 3)")
     rng = np.random.RandomState(5)
     obs = env.observation(_random_states(env, B, 60, seed=5, device="cpu"))
     policy = torch.softmax(torch.from_numpy(
@@ -1946,19 +2439,24 @@ def main() -> int:
     # The sequential path at the shipped config's width (256 games), and
     # tree reuse at bench.py's reuse shape, against the same greedy moves
     # without reuse.
+    # Cut with the chess phases, to hold the script under 700 s: [w1_main]
+    # at 400 simulations, [reuse_base] and [reuse_main] at 192 (12 waves of
+    # 16; were 800).
+    log("[w1_main] depth cut: 400 simulations (was 800); [reuse_base] "
+        "[reuse_main]: 192 (were 800)")
     w1_res = timed("w1_main", phase_main_path, env, int8_eval, "int8",
-                   sims=800, moves=2, s8_convs=convs, B=256, W=1, tag="w1_main")
-    if w1_res["launches"]["s8_mm"] != convs * (1 + 800) * 2:
+                   sims=400, moves=2, s8_convs=convs, B=256, W=1, tag="w1_main")
+    if w1_res["launches"]["s8_mm"] != convs * (1 + 400) * 2:
         raise AssertionError(f"[w1_main] s8_mm launches {w1_res['launches']}, "
-                             f"not {convs} x (1 + 800) a move")
+                             f"not {convs} x (1 + 400) a move")
     # Cut with the Go phases, which took the script past 600 s: 2 moves
     # each (was 3), the second timed (after reuse, a re-rooted tree).
     log("[reuse_base] [reuse_main] depth cut: 2 moves each (was 3), the second timed")
     base_res = timed("reuse_base", phase_main_path, env, int8_eval, "int8",
-                     sims=800, moves=2, s8_convs=convs, greedy=True,
+                     sims=192, moves=2, s8_convs=convs, greedy=True,
                      tag="reuse_base")
     reuse_res = timed("reuse_main", phase_main_path, env, int8_eval, "int8",
-                      sims=800, moves=2, s8_convs=convs, reuse=True,
+                      sims=192, moves=2, s8_convs=convs, reuse=True,
                       tag="reuse_main")
     log("[reuse_main] timed moves/s (move 2) with reuse "
         f"{reuse_res['timed_moves_per_s']:.2f} against "
@@ -1972,11 +2470,18 @@ def main() -> int:
     timed("search_options", phase_search_options)
     timed("parity", phase_parity)
     timed("train", phase_train, env, model_path)
-    timed("train_config", phase_train_config)
-    timed("variants", phase_variants, int8_eval, convs, main_res)
-    timed("arena", phase_arena, model_path)
+    log("[train_config] depth cut: 4 moves an iteration (was 8)")
+    timed("train_config", phase_train_config, cuts={"selfplay.max_moves": 4})
+    log("[variants] depth cut: 192 simulations (was 800)")
+    timed("variants", phase_variants, int8_eval, convs, main_res, sims=192)
+    # Cut with the chess phases, to hold the script near 700 s: 8 games an
+    # anchor (was 16), the gate still three quarters of them.
+    log("[arena] ladder depth cut: 8 games an anchor (was 16)")
+    timed("arena", phase_arena, model_path, games=8)
     go = phase_go(convs)
     walls.update(go["walls"])
+    chess = phase_chess()
+    walls.update(chess["walls"])
 
     head = rows[0]  # child stats: the most rows of any gather per level
     kernels = [{

@@ -49,8 +49,10 @@ def test_board_hash_matches():
 def test_registry():
     env = registry.create_game("gomoku", 9)
     assert env.num_actions == 81
-    with pytest.raises(NotImplementedError):
-        registry.create_game("chess")
+    assert registry.create_game("chess").num_actions == 4672
+    assert registry.registered_games() == ["chess", "go", "gomoku"]
+    with pytest.raises(KeyError):
+        registry.create_game("shogi")
     assert registry.create_game("gomoku", 15, use_renju=True).use_renju
 
 

@@ -308,5 +308,4 @@ def test_registry_creates_go():
     assert registry.create_game(GameType.GO).board_size == 9
     assert registry.create_game("go", 19, komi=6.5).komi == 6.5
     assert int(env.game_type) == int(JaxGameType.GO)
-    with pytest.raises(NotImplementedError):
-        registry.create_game("chess")
+    assert int(registry.create_game("chess").game_type) == int(JaxGameType.CHESS)

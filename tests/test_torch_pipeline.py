@@ -242,7 +242,7 @@ def test_train_cli_runs_shipped_config_cut_to_depth(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [["--model", "randwire"],
-                                  ["--game", "chess"]])
+                                  ["--game", "chess", "--model", "randwire"]])
 def test_train_cli_refuses_unported_paths(argv, tmp_path):
     with pytest.raises(NotImplementedError):
         train_cli.main(argv + ["--device", "cpu", "--checkpoint-dir", str(tmp_path)])
