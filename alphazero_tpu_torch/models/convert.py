@@ -1,4 +1,4 @@
-"""Weight carry-over from a JAX ``AZResNet`` variables tree.
+"""Weight carry-over between JAX variables trees and the port's modules.
 
 ``state_dict_from_flax`` maps ``{"params": ..., "batch_stats": ...}`` (nested
 dicts of numpy arrays, as ``flax.serialization.msgpack_restore`` or
@@ -12,6 +12,8 @@ and ``Conv_2``/``Dense_1``/``Dense_2`` (value head); each block holds
 with ``Dense_0``/``Dense_1``.  A ``norm="group"`` net has ``GroupNorm_i``
 where a batch-norm net has ``BatchNorm_i``, and no ``batch_stats``.
 ``flax_from_state_dict`` maps the other way, to numpy arrays in flax's tree.
+``randwire_state_dict_from_flax`` and ``flax_from_randwire_state_dict`` do
+the same for ``DDWRandWireResNet``.
 
 ``folded_from_jax`` and ``quant_params_from_jax`` carry the flat ``fp`` and
 ``qp`` dicts of the JAX ``models/quant.py`` across as they are (NHWC/HWIO
@@ -80,12 +82,26 @@ def state_dict_from_flax(variables: Dict, num_blocks: int) -> Dict[str, torch.Te
         norm_pair(f"{pre}.bn2", blk, bst, 1)
         _dense(sd, f"{pre}.se.fc1", blk["SEBlock_0"]["Dense_0"])
         _dense(sd, f"{pre}.se.fc2", blk["SEBlock_0"]["Dense_1"])
-    _conv(sd, "policy_conv", params["Conv_1"])
-    _dense(sd, "policy_fc", params["Dense_0"])
-    _conv(sd, "value_conv", params["Conv_2"])
-    _dense(sd, "value_fc1", params["Dense_1"])
-    _dense(sd, "value_fc2", params["Dense_2"])
+    _heads_from_flax(sd, params)
     return sd
+
+
+def _arr(sd, key) -> np.ndarray:
+    return sd[key].detach().float().cpu().numpy().copy()
+
+
+def _flax_conv(sd, name) -> Dict:
+    """A conv's flax params (HWIO kernel, bias where it has one)."""
+    out = {"kernel": _arr(sd, f"{name}.weight").transpose(2, 3, 1, 0)}
+    if f"{name}.bias" in sd:
+        out["bias"] = _arr(sd, f"{name}.bias")
+    return out
+
+
+def _flax_dense(sd, name) -> Dict:
+    """A dense layer's flax params ([in, out] kernel, bias)."""
+    return {"kernel": _arr(sd, f"{name}.weight").T.copy(),
+            "bias": _arr(sd, f"{name}.bias")}
 
 
 def flax_from_state_dict(sd: Dict[str, torch.Tensor], num_blocks: int,
@@ -94,16 +110,13 @@ def flax_from_state_dict(sd: Dict[str, torch.Tensor], num_blocks: int,
     ``{"params": ..., "batch_stats": ...}`` (no ``batch_stats`` unless
     ``norm="batch"``), the tree JAX's ``model.init`` gives."""
     def a(key):
-        return sd[key].detach().float().cpu().numpy().copy()
+        return _arr(sd, key)
 
     def conv(name):
-        out = {"kernel": a(f"{name}.weight").transpose(2, 3, 1, 0)}
-        if f"{name}.bias" in sd:
-            out["bias"] = a(f"{name}.bias")
-        return out
+        return _flax_conv(sd, name)
 
     def dense(name):
-        return {"kernel": a(f"{name}.weight").T.copy(), "bias": a(f"{name}.bias")}
+        return _flax_dense(sd, name)
 
     tag = {"batch": "BatchNorm", "group": "GroupNorm"}.get(norm)
     params: Dict = {}
@@ -139,6 +152,82 @@ def flax_from_state_dict(sd: Dict[str, torch.Tensor], num_blocks: int,
     if tag == "BatchNorm":
         out["batch_stats"] = stats
     return out
+
+
+def _heads_from_flax(sd, params):
+    _conv(sd, "policy_conv", params["Conv_1"])
+    _dense(sd, "policy_fc", params["Dense_0"])
+    _conv(sd, "value_conv", params["Conv_2"])
+    _dense(sd, "value_fc1", params["Dense_1"])
+    _dense(sd, "value_fc2", params["Dense_2"])
+
+
+def randwire_state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX ``DDWRandWireResNet`` variables tree as the port's
+    ``DDWRandWireResNet.state_dict``.  flax names the stem ``Conv_0`` and
+    ``GroupNorm_0``, each block ``block_{b}`` with ``router_{i}/Conv_0``
+    (only for a node with several predecessors) and ``node_{i}`` holding
+    ``Conv_0``, ``GroupNorm_0``, ``Conv_1``, ``GroupNorm_1`` and
+    ``SEBlock_0``; the heads are ``Conv_1``/``Dense_0`` and
+    ``Conv_2``/``Dense_1``/``Dense_2``, as in the ResNet."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "stem", params["Conv_0"])
+    _bn(sd, "stem_gn", params["GroupNorm_0"], None)
+    b = 0
+    while f"block_{b}" in params:
+        blk, pre = params[f"block_{b}"], f"blocks.{b}"
+        i = 0
+        while f"node_{i}" in blk:
+            if f"router_{i}" in blk:
+                _conv(sd, f"{pre}.routers.{i}", blk[f"router_{i}"]["Conv_0"])
+            node, npre = blk[f"node_{i}"], f"{pre}.nodes.{i}"
+            _conv(sd, f"{npre}.conv1", node["Conv_0"])
+            _bn(sd, f"{npre}.gn1", node["GroupNorm_0"], None)
+            _conv(sd, f"{npre}.conv2", node["Conv_1"])
+            _bn(sd, f"{npre}.gn2", node["GroupNorm_1"], None)
+            _dense(sd, f"{npre}.se.fc1", node["SEBlock_0"]["Dense_0"])
+            _dense(sd, f"{npre}.se.fc2", node["SEBlock_0"]["Dense_1"])
+            i += 1
+        b += 1
+    _heads_from_flax(sd, params)
+    return sd
+
+
+def flax_from_randwire_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
+    """The port's ``DDWRandWireResNet.state_dict`` as flax variables
+    (numpy float32 ``{"params": ...}``), the tree JAX's ``model.init``
+    gives."""
+    def conv(name):
+        return _flax_conv(sd, name)
+
+    def dense(name):
+        return _flax_dense(sd, name)
+
+    def norm(name):
+        return {"scale": _arr(sd, f"{name}.weight"), "bias": _arr(sd, f"{name}.bias")}
+
+    params: Dict = {"Conv_0": conv("stem"), "GroupNorm_0": norm("stem_gn")}
+    b = 0
+    while f"blocks.{b}.nodes.0.conv1.weight" in sd:
+        pre, blk = f"blocks.{b}", {}
+        i = 0
+        while f"{pre}.nodes.{i}.conv1.weight" in sd:
+            if f"{pre}.routers.{i}.weight" in sd:
+                blk[f"router_{i}"] = {"Conv_0": conv(f"{pre}.routers.{i}")}
+            npre = f"{pre}.nodes.{i}"
+            blk[f"node_{i}"] = {
+                "Conv_0": conv(f"{npre}.conv1"), "GroupNorm_0": norm(f"{npre}.gn1"),
+                "Conv_1": conv(f"{npre}.conv2"), "GroupNorm_1": norm(f"{npre}.gn2"),
+                "SEBlock_0": {"Dense_0": dense(f"{npre}.se.fc1"),
+                              "Dense_1": dense(f"{npre}.se.fc2")}}
+            i += 1
+        params[f"block_{b}"] = blk
+        b += 1
+    params.update(Conv_1=conv("policy_conv"), Dense_0=dense("policy_fc"),
+                  Conv_2=conv("value_conv"), Dense_1=dense("value_fc1"),
+                  Dense_2=dense("value_fc2"))
+    return {"params": params}
 
 
 def _tree_to_torch(x: Any, device) -> Any:

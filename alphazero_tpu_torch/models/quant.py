@@ -452,10 +452,10 @@ def _executor_params(qp):
 
 def _chunked_int8_eval(qp, obs, chunk, chunk_mode, residual="bf16",
                        heads="bf16"):
-    if chunk_mode != "unroll":
-        raise NotImplementedError(
-            f"chunk_mode={chunk_mode!r}: the port runs the chunks as a "
-            "Python loop ('unroll'); 'map' is an XLA loop form")
+    # JAX's "map" is an XLA loop over the same chunks; in eager PyTorch both
+    # forms are this Python loop.
+    if chunk_mode not in ("unroll", "map"):
+        raise ValueError(f"unknown chunk_mode {chunk_mode!r}")
     B = obs.shape[0]
     if chunk and B > chunk and B % chunk == 0:
         x = obs.float().permute(0, 2, 3, 1)
@@ -500,9 +500,8 @@ def make_int8_eval_fn(model: AZResNet, calib_obs=None, chunk: int = 512,
     ``chunk``: a batch larger than this, and a multiple of it, is quantised
     once and then evaluated ``chunk`` positions at a time.
 
-    ``chunk_mode``: only "unroll" (a Python loop over the chunks) exists
-    here; the JAX package's "map" is an XLA loop form with no counterpart
-    in eager PyTorch and raises ``NotImplementedError``."""
+    ``chunk_mode``: "unroll" or "map", the JAX package's two loop forms;
+    in eager PyTorch both run the chunks in one Python loop."""
     qp = _executor_params(
         build_quantized_params(model, calib_obs, calib_percentile))
 
@@ -514,22 +513,33 @@ def make_int8_eval_fn(model: AZResNet, calib_obs=None, chunk: int = 512,
 
 
 def make_production_eval_params(env, model: AZResNet, device="cuda",
-                                generator: torch.Generator | None = None):
+                                generator: torch.Generator | None = None,
+                                chunk: int | None = None,
+                                residual: str | None = None,
+                                calib_percentile: float | None = None):
     """The production executor of ``production.py`` for ``model``, in the
     params style of ``make_int8_eval_params``: rollout calibration
     observations from the folded net's own policy, then the int8 evaluator
-    with the pinned percentile, residual, heads and chunk.  Returns
-    ``(eval_fn, qp, calib_obs)``; ``eval_fn(qp, obs, to_play)``."""
+    with the pinned heads and the percentile, residual and chunk given
+    (``production.py``'s where None; a chunk of 0 evaluates the batch in
+    one piece).  Returns ``(eval_fn, qp, calib_obs)``;
+    ``eval_fn(qp, obs, to_play)``."""
     from alphazero_tpu_torch import production
 
     calib = make_rollout_calib_fn(
         env, make_inference_eval_fn(model), n=production.CALIB_GAMES,
         plies=production.CALIB_PLIES, every=production.CALIB_EVERY,
         device=device)(None, generator)
+
+    def pick(value, default):
+        return default if value is None else value
+
     eval_fn, qp = make_int8_eval_params(
-        model, calib_obs=calib, chunk=production.INT8_CHUNK,
-        residual=production.INT8_RESIDUAL, heads=production.INT8_HEADS,
-        calib_percentile=production.INT8_CALIB_PERCENTILE)
+        model, calib_obs=calib, chunk=pick(chunk, production.INT8_CHUNK),
+        residual=pick(residual, production.INT8_RESIDUAL),
+        heads=production.INT8_HEADS,
+        calib_percentile=pick(calib_percentile,
+                              production.INT8_CALIB_PERCENTILE))
     return eval_fn, qp, calib
 
 

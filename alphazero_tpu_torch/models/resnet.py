@@ -159,6 +159,26 @@ class ResBlock(nn.Module):
         return torch.relu(x + h)
 
 
+@torch.no_grad()
+def flax_init_(module: nn.Module, generator: torch.Generator | None = None):
+    """flax's initial distributions for every layer of ``module``, in
+    place: conv and dense kernels lecun-normal (a normal truncated at two
+    standard deviations, variance 1/fan_in), every bias 0, norm scales 1,
+    BN running mean 0 and variance 1."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            std = (1.0 / m.weight[0].numel()) ** 0.5 / _TRUNC_STD
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (BatchNorm, GroupNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            if isinstance(m, BatchNorm):
+                m.reset_running_stats()
+
+
 class AZResNet(nn.Module):
     """(logits f32 [B, A], value f32 [B]) from obs [B, C, H, W]."""
 
@@ -183,23 +203,10 @@ class AZResNet(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
-        """flax's initial distributions: conv and dense kernels lecun-normal
-        (a normal truncated at two standard deviations, variance 1/fan_in),
-        every bias 0, norm scales 1, BN running mean 0 and variance 1; the
-        policy dense kernel and the last value dense kernel 0 (a fan-in
-        init there saturates the value tanh within tens of Adam steps)."""
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                std = (1.0 / m.weight[0].numel()) ** 0.5 / _TRUNC_STD
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, (BatchNorm, GroupNorm)):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-                if isinstance(m, BatchNorm):
-                    m.reset_running_stats()
+        """flax's initial distributions (``flax_init_``), with the policy
+        dense kernel and the last value dense kernel 0 (a fan-in init there
+        saturates the value tanh within tens of Adam steps)."""
+        flax_init_(self, generator)
         self.policy_fc.weight.zero_()
         self.value_fc2.weight.zero_()
 

@@ -15,7 +15,12 @@ with checkpoints and ``history.json`` under ``--checkpoint-dir``.
     python -m alphazero_tpu_torch.scripts.train --game chess --board-size 8
                             # or --config config/chess.json
 
-Not ported yet, and refused: ``--model randwire``.
+    python -m alphazero_tpu_torch.scripts.train --model randwire
+                            # DDW-RandWire (4 blocks unless --blocks)
+
+``--model randwire`` trains ``models/randwire.DDWRandWireResNet`` with
+``--blocks`` and ``--channels`` (the JAX CLI reads the flag but builds the
+ResNet whatever it says).
 """
 from __future__ import annotations
 
@@ -47,7 +52,9 @@ def build_parser():
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--weight-decay", type=float, default=1e-4)
     p.add_argument("--scheduler", default="warmup_cosine")
-    p.add_argument("--blocks", type=int, default=6)
+    p.add_argument("--blocks", type=int, default=None,
+                   help="residual blocks (resnet, default 6) or RandWire "
+                        "blocks (randwire, default 4)")
     p.add_argument("--channels", type=int, default=64)
     p.add_argument("--model", default="resnet", choices=["resnet", "randwire"])
     p.add_argument("--checkpoint-dir", default="checkpoints")
@@ -68,29 +75,15 @@ def build_parser():
     return p
 
 
-def main(argv=None):
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(message)s")
-    args = build_parser().parse_args(argv)
-
+def pipeline_config(args):
+    """The ``PipelineConfig`` the flags in ``args`` describe (``--config``
+    aside)."""
     from alphazero_tpu_torch import production
     from alphazero_tpu_torch.mcts.search import MCTSConfig
     from alphazero_tpu_torch.models.resnet import ResNetConfig
     from alphazero_tpu_torch.selfplay.actor import SelfPlayConfig
     from alphazero_tpu_torch.training.learner import LearnerConfig
-    from alphazero_tpu_torch.training.pipeline import Pipeline, PipelineConfig
-
-    if args.config:
-        from alphazero_tpu_torch.utils.config import load_config
-
-        pipe = Pipeline(load_config(PipelineConfig, args.config),
-                        device=args.device)
-        if args.resume:
-            logging.info("resumed from %s", pipe.restore_checkpoint())
-        pipe.run()
-        return
-    if args.model != "resnet":
-        raise NotImplementedError(f"--model {args.model} is not ported yet")
+    from alphazero_tpu_torch.training.pipeline import PipelineConfig
 
     game_options = []
     if args.game == "gomoku":
@@ -105,12 +98,20 @@ def main(argv=None):
     else:
         max_moves = args.max_moves or 512
 
+    model_options = ()
+    if args.model == "randwire":
+        model_options = (("channels", args.channels),)
+        if args.blocks:
+            model_options = (("num_blocks", args.blocks),) + model_options
+
     total_steps = args.iterations * args.train_steps
-    config = PipelineConfig(
+    return PipelineConfig(
         game=args.game,
         board_size=args.board_size,
         game_options=tuple(game_options),
-        model=ResNetConfig(num_blocks=args.blocks, channels=args.channels),
+        model=ResNetConfig(num_blocks=args.blocks or 6, channels=args.channels),
+        model_kind=args.model,
+        model_options=model_options,
         selfplay=SelfPlayConfig(
             mcts=MCTSConfig(num_simulations=args.simulations,
                             wave_size=args.wave),
@@ -135,7 +136,25 @@ def main(argv=None):
         inference=args.inference or production.INFERENCE,
         seed=args.seed,
     )
-    pipe = Pipeline(config, device=args.device)
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+    args = build_parser().parse_args(argv)
+
+    from alphazero_tpu_torch.training.pipeline import Pipeline, PipelineConfig
+
+    if args.config:
+        from alphazero_tpu_torch.utils.config import load_config
+
+        pipe = Pipeline(load_config(PipelineConfig, args.config),
+                        device=args.device)
+        if args.resume:
+            logging.info("resumed from %s", pipe.restore_checkpoint())
+        pipe.run()
+        return
+    pipe = Pipeline(pipeline_config(args), device=args.device)
     if args.resume:
         logging.info("resumed from checkpoint %s", pipe.restore_checkpoint())
     if args.games_dir:

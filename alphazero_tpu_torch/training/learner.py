@@ -17,7 +17,6 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
-from alphazero_tpu_torch.models.resnet import AZResNet
 from alphazero_tpu_torch.training import schedulers
 from alphazero_tpu_torch.training.loss import alphazero_loss
 
@@ -38,10 +37,11 @@ class LearnerConfig:
 
 @dataclasses.dataclass
 class TrainState:
-    """``module`` holds the float32 master weights and the BN running
-    statistics; ``step`` counts the updates applied."""
+    """``module`` (an ``AZResNet`` or a ``DDWRandWireResNet``) holds the
+    float32 master weights and the BN running statistics; ``step`` counts
+    the updates applied."""
 
-    module: AZResNet
+    module: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
 
@@ -66,7 +66,7 @@ def make_optimizer(config: LearnerConfig, params) -> torch.optim.Optimizer:
                              weight_decay=config.weight_decay)
 
 
-def create_train_state(model: AZResNet, config: LearnerConfig) -> TrainState:
+def create_train_state(model: torch.nn.Module, config: LearnerConfig) -> TrainState:
     return TrainState(module=model,
                       optimizer=make_optimizer(config, model.parameters()))
 

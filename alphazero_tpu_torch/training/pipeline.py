@@ -11,8 +11,12 @@ runs ``train_steps_per_iteration`` sampled AdamW steps.  Checkpoints are
 count, the generator state and optionally the replay ring; the last three
 are kept.  ``history.json`` records every iteration.
 
-Not ported yet: the scanned actor (``host_actor=False``), RandWire models
-(``model_kind="randwire"``) and the device mesh (one device only).
+``model_kind="randwire"`` builds a ``DDWRandWireResNet`` from
+``model_options`` (``models/io.build_model``); it has no BatchNorm, so its
+actor runs the module as it is ("raw"), as the JAX pipeline's does.
+
+Not ported yet: the scanned actor (``host_actor=False``) and the device
+mesh (one device only).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 from alphazero_tpu_torch import production
 from alphazero_tpu_torch.core import registry
 from alphazero_tpu_torch.models import quant
+from alphazero_tpu_torch.models.io import build_model
 from alphazero_tpu_torch.models.resnet import (
     AZResNet, ResNetConfig, make_inference_eval_fn,
 )
@@ -57,7 +62,7 @@ class PipelineConfig:
     board_size: int = 15
     game_options: tuple = ()  # sorted (key, value) pairs for the env
     model: ResNetConfig = ResNetConfig()
-    model_kind: str = "resnet"  # "randwire" is not ported yet
+    model_kind: str = "resnet"  # "resnet" (``model``) | "randwire"
     model_options: tuple = ()
     selfplay: SelfPlayConfig = SelfPlayConfig()
     learner: LearnerConfig = LearnerConfig()
@@ -76,9 +81,12 @@ class PipelineConfig:
     host_actor: bool = True  # the scanned actor (False) is not ported yet
     # Actor inference: "int8" (production executor), "folded" (BN folded,
     # bf16) or "raw" (the learner's module as it is; debugging only).
-    # The int8 executor's settings are production.py's; the JAX config's
-    # int8_chunk, int8_residual and int8_calib_percentile have no field here.
     inference: str = production.INFERENCE
+    # The int8 executor's chunk (0: the whole batch in one piece), residual
+    # form and calibration percentile (0: max-abs).
+    int8_chunk: int = production.INT8_CHUNK
+    int8_residual: str = production.INT8_RESIDUAL
+    int8_calib_percentile: float = production.INT8_CALIB_PERCENTILE
     seed: int = 0
 
 
@@ -86,9 +94,6 @@ class Pipeline:
     """Actor/learner alternation on ``device`` (default ``cuda``)."""
 
     def __init__(self, config: PipelineConfig, device="cuda"):
-        if config.model_kind != "resnet":
-            raise NotImplementedError(
-                f"model_kind={config.model_kind!r} is not ported yet")
         if not config.host_actor:
             raise NotImplementedError(
                 "the scanned actor (host_actor=False) is not ported yet")
@@ -98,9 +103,15 @@ class Pipeline:
                                         **dict(config.game_options))
         # The initial weights come from a CPU generator, so every device
         # starts from the same net.
-        model = AZResNet(self.env.num_actions, config.model,
-                         obs_shape=self.env.observation_shape,
-                         generator=torch.Generator().manual_seed(config.seed))
+        gen = torch.Generator().manual_seed(config.seed)
+        if config.model_kind == "resnet":
+            model = AZResNet(self.env.num_actions, config.model,
+                             obs_shape=self.env.observation_shape,
+                             generator=gen)
+        else:
+            model, _ = build_model(config.model_kind, self.env.num_actions,
+                                   dict(config.model_options),
+                                   self.env.observation_shape, gen)
         self.state = create_train_state(model.to(self.device), config.learner)
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.seed)
@@ -123,9 +134,12 @@ class Pipeline:
         mode = cfg.inference
         if mode not in ("raw", "folded", "int8"):
             raise ValueError(f"unknown inference mode {mode!r}")
-        if mode != "raw" and cfg.model.norm not in ("batch", "none"):
+        model = self.state.module
+        norm = getattr(model.cfg, "norm", None)  # the built model's
+        if mode != "raw" and norm not in ("batch", "none"):
             log.warning("inference=%s needs a batch/none-norm AZResNet; "
-                        "falling back to raw for norm=%r", mode, cfg.model.norm)
+                        "falling back to raw for %s (norm=%r)", mode,
+                        type(model).__name__, norm)
             mode = "raw"
         self.inference_mode = mode
 
@@ -143,7 +157,8 @@ class Pipeline:
             # refreshed net itself (its BN-folded bf16 form).
             nonlocal int8_eval
             int8_eval, qp, _ = quant.make_production_eval_params(
-                env, model, self.device, self.generator)
+                env, model, self.device, self.generator, cfg.int8_chunk,
+                cfg.int8_residual, cfg.int8_calib_percentile)
             return qp
 
         self._eval_transform = transform

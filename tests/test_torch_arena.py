@@ -26,6 +26,7 @@ from alphazero_tpu_torch.games.gomoku import GomokuEnv
 from alphazero_tpu_torch.mcts import search as tsearch
 from alphazero_tpu_torch.models.stub import make_uniform_eval_fn
 from test_torch_search import evaluators, peaked_evaluators
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N = 7
 A = N * N

@@ -23,6 +23,7 @@ from alphazero_tpu_torch.core.types import GameType, cat_states
 from alphazero_tpu_torch.games import chess, chess_fen, chess_tables
 from alphazero_tpu_torch.games.chess_tables import encode_move
 from test_torch_core_gomoku import _pair
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B = 64
 FIELDS = ("board", "to_play", "castling", "rook_start", "king_start",
@@ -50,18 +51,6 @@ PLAYOUT_FENS = (KIWIPETE, POS3, POS4, POS5,
                 "k7/8/8/8/8/8/8/K6R w - - 95 80",
                 "k7/8/8/8/8/8/R7/K7 w - - 0 1",
                 "4k3/8/8/3pP3/8/8/8/4K3 w - d6 0 40")
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for the port's small CPU ops while this module
-    runs: in the suite's parallel workers, ops split across every core's
-    thread wait on each other (an 8 s test took 576 s), and one thread runs
-    them at their single-process speed."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def envs(**kw):
     return jchess.ChessEnv(**kw), chess.ChessEnv(**kw)
 

@@ -8,6 +8,7 @@ seconds, ``train --game chess``, ``self_play --game chess`` (uniform and
 the int8 executor on chess_dev), ``evaluate`` and ``tournament --game
 chess`` with the JAX CLIs' JSON keys."""
 import ast
+import functools
 import json
 import os
 import shutil
@@ -41,7 +42,9 @@ from alphazero_tpu_torch.selfplay.actor import (
     SelfPlayConfig, make_host_actor, stack_records,
 )
 from alphazero_tpu_torch.training import replay as treplay
-from test_torch_chess import FIELDS, one_torch_thread, to_jax  # noqa: F401 (autouse)
+from test_torch_chess import (  # noqa: F401 (one_torch_thread: autouse)
+    FAST, FIELDS, assert_state_equal, one_torch_thread, to_jax,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHESS_DEV = os.path.join(REPO, "models_zoo", "chess_dev")
@@ -178,6 +181,29 @@ def test_chess_records_replay_into_training_arrays(chess_records):
     np.testing.assert_allclose(tpol.numpy(), out.policies.numpy(), atol=1e-6)
     acts = np.array([[m.action for m in r.moves] for r in records]).T
     assert (acts == out.actions.numpy()).all()
+
+
+def test_chess_records_match_jax_records_to_training_arrays(chess_records):
+    """The port's chess records replayed by the JAX package's
+    ``records_to_training_arrays`` (its chess step compiled at XLA
+    optimisation level 1): the same states field for field, policies,
+    value targets and mask as the port's replay of the same records."""
+    env, records, _, (tst, tpol, tz, tmask) = chess_records
+    jrecs = [jrecord.GameRecord.from_json(r.to_json()) for r in records]
+    real = jax.jit
+    jax.jit = functools.partial(real, compiler_options=FAST)
+    try:
+        jst, jpol, jz, jmask = jrecord.records_to_training_arrays(
+            jchess.ChessEnv(), jrecs)
+    finally:
+        jax.jit = real
+    T, G = tz.shape
+    np.testing.assert_array_equal(tpol.numpy(), np.asarray(jpol))
+    np.testing.assert_array_equal(tz.numpy(), np.asarray(jz))
+    np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
+    assert_state_equal(tst.map(lambda x: x.reshape((T * G,) + x.shape[2:])),
+                       jax.tree_util.tree_map(
+                           lambda x: x.reshape((T * G,) + x.shape[2:]), jst))
 
 
 def test_jax_replay_augment_corrupts_chess_samples():

@@ -26,6 +26,7 @@ from alphazero_tpu_torch.core import registry, zobrist
 from alphazero_tpu_torch.core.types import GameType
 from alphazero_tpu_torch.games import go
 from test_torch_core_gomoku import _pair
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FIELDS = ("board", "to_play", "ko_point", "consecutive_passes", "move_count",
           "prisoners", "terminal", "winner", "board_hash", "history",

@@ -36,6 +36,7 @@ from alphazero_tpu_torch.selfplay.actor import (
 )
 from alphazero_tpu_torch.training import replay as treplay
 from test_torch_go import assert_state_equal, envs
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GO9 = os.path.join(REPO, "models_zoo", "go9")

@@ -20,6 +20,7 @@ from alphazero_tpu_torch.core.types import where_lanes
 from alphazero_tpu_torch.mcts import search as tsearch
 from alphazero_tpu_torch.models.stub import make_uniform_eval_fn
 from test_torch_go import choose, envs, jax_fns, jax_init
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B = 8
 

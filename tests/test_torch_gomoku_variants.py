@@ -16,6 +16,7 @@ from alphazero_tpu.games.gomoku import GomokuEnv as JaxGomoku
 from alphazero_tpu_torch.core import registry
 from alphazero_tpu_torch.games.gomoku import GomokuEnv, _run_through_maps
 from test_torch_core_gomoku import _pair
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 VARIANTS = {
     "renju": dict(use_renju=True),

@@ -25,6 +25,7 @@ from alphazero_tpu_torch.selfplay.actor import SelfPlayConfig
 from alphazero_tpu_torch.training.learner import LearnerConfig
 from alphazero_tpu_torch.training.pipeline import Pipeline, PipelineConfig
 from alphazero_tpu_torch.utils import config as tconfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -241,11 +242,25 @@ def test_train_cli_runs_shipped_config_cut_to_depth(tmp_path):
     assert entry["moves"] == 8 and np.isfinite(entry["loss"])
 
 
-@pytest.mark.parametrize("argv", [["--model", "randwire"],
-                                  ["--game", "chess", "--model", "randwire"]])
+@pytest.mark.parametrize("argv", [["--model", "randwire", "--board-size", "5"],
+                                  ["--game", "chess", "--model", "randwire",
+                                   "--board-size", "8"]])
 def test_train_cli_refuses_unported_paths(argv, tmp_path):
-    with pytest.raises(NotImplementedError):
-        train_cli.main(argv + ["--device", "cpu", "--checkpoint-dir", str(tmp_path)])
+    """Once refused, ``--model randwire`` now trains a ``DDWRandWireResNet``
+    for Gomoku and chess (a tiny 1 x 2 x 16 net, 2 moves), its actor on
+    the raw module."""
+    ckpt = tmp_path / "run"
+    train_cli.main(argv + ["--device", "cpu", "--blocks", "1", "--channels", "16",
+                           "--iterations", "1", "--games-per-iteration", "2",
+                           "--simulations", "4", "--wave", "4", "--max-moves", "2",
+                           "--train-steps", "1", "--train-batch-size", "8",
+                           "--min-replay", "1", "--no-recycle",
+                           "--checkpoint-every", "1", "--checkpoint-dir", str(ckpt)])
+    with open(ckpt / "history.json") as f:
+        (entry,) = json.load(f)
+    assert entry["moves"] == 4 and np.isfinite(entry["loss"])
+    payload = torch.load(ckpt / "ckpt_0.pt", weights_only=True)
+    assert "blocks.0.nodes.0.conv1.weight" in payload["model"]
 
 
 def test_train_cli_runs_on_cpu(tmp_path):
@@ -297,18 +312,50 @@ def test_train_cli_wave_1_on_cpu(tmp_path):
 
 def test_jax_and_port_default_configs_agree():
     """The port's per-game defaults are the JAX package's values, field for
-    field (the model's dtypes aside, and the JAX config's int8 executor
-    fields, which the port reads from production.py instead)."""
+    field, the int8 executor's fields included (the model's dtypes
+    aside)."""
     from alphazero_tpu.utils import config as jconfig
 
     def without_dtypes(d):
         return {k: (without_dtypes(v) if isinstance(v, dict) else v)
                 for k, v in d.items() if "dtype" not in k}
 
-    int8_fields = ("int8_chunk", "int8_residual", "int8_calib_percentile")
     for game in ("gomoku", "go", "chess"):
         j = without_dtypes(jconfig.to_dict(jconfig.default_pipeline_config(game)))
-        assert all(k in j for k in int8_fields)
-        j = {k: v for k, v in j.items() if k not in int8_fields}
+        assert all(k in j for k in ("int8_chunk", "int8_residual",
+                                    "int8_calib_percentile"))
         t = without_dtypes(tconfig.to_dict(tconfig.default_pipeline_config(game)))
         assert t == j
+
+
+def test_jax_int8_fields_reach_the_executor(tmp_path, monkeypatch):
+    """A JAX-written config that sets the int8 executor's chunk (0: one
+    piece), residual and percentile loads with those values, and the
+    pipeline's executor is built with them."""
+    from alphazero_tpu.training.pipeline import PipelineConfig as JaxConfig
+    from alphazero_tpu.utils import config as jconfig
+    from alphazero_tpu_torch.models import quant
+
+    path = str(tmp_path / "jax.json")
+    jconfig.save_config(JaxConfig(int8_chunk=0, int8_residual="bf16",
+                                  int8_calib_percentile=99.9), path)
+    loaded = tconfig.load_config(PipelineConfig, path)
+    assert (loaded.int8_chunk, loaded.int8_residual,
+            loaded.int8_calib_percentile) == (0, "bf16", 99.9)
+    monkeypatch.setattr(production, "CALIB_GAMES", 4)
+    seen = {}
+    orig = quant.make_int8_eval_params
+
+    def spy(model, **kw):
+        seen.update(kw)
+        return orig(model, **kw)
+
+    monkeypatch.setattr(quant, "make_int8_eval_params", spy)
+    pipe = Pipeline(tiny_config(tmp_path, inference="int8", int8_chunk=0,
+                                int8_residual="bf16", int8_calib_percentile=99.9),
+                    device="cpu")
+    pipe.eval_tree = pipe._eval_transform(pipe.state.module)
+    assert (seen["chunk"], seen["residual"], seen["calib_percentile"]) == (
+        0, "bf16", 99.9)
+    logits, value = pipe.evaluate(torch.zeros((3, 11, 5, 5)))
+    assert logits.shape == (3, 25) and bool(torch.isfinite(value).all())

@@ -22,6 +22,7 @@ from alphazero_tpu_torch.models.convert import (
 from alphazero_tpu_torch.models.resnet import (
     AZResNet, ResNetConfig, make_inference_eval_fn,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N = 7
 OBS = (11, N, N)
@@ -320,8 +321,29 @@ def test_chunked_equals_unchunked(nets, residual, heads):
     assert torch.equal(whole[0], chunks[0]) and torch.equal(whole[1], chunks[1])
     # 14 is no multiple of 4: evaluated whole, as the JAX package does
     assert torch.equal(odd[0], whole[0][:14])
-    with pytest.raises(NotImplementedError):
-        tq._chunked_int8_eval(nets["qp"], obs, 4, "map")
+    # JAX's "map" loop form runs the same chunks in eager PyTorch
+    mapped = tq._chunked_int8_eval(nets["qp"], obs, 4, "map", residual, heads)
+    assert torch.equal(mapped[0], chunks[0]) and torch.equal(mapped[1], chunks[1])
+    with pytest.raises(ValueError):
+        tq._chunked_int8_eval(nets["qp"], obs, 4, "scan")
+
+
+@pytest.mark.parametrize("residual", ["bf16", "int8"])
+def test_chunked_map_matches_jax(nets, residual):
+    """``chunk_mode="map"`` against the JAX package's ``lax.map`` form on
+    the same quantised parameters: 4 chunks of 4."""
+    obs = _obs(16, seed=12)
+    jl, jv = jq._chunked_int8_eval(nets["jqp"], jnp.asarray(obs), 4, "map",
+                                   residual=residual)
+    with torch.no_grad():
+        tl, tv = tq._chunked_int8_eval(nets["qp"], torch.from_numpy(obs), 4,
+                                       "map", residual=residual)
+    assert tl.shape == jl.shape and tv.shape == jv.shape
+    # The bounds of test_forward_int8_matches_jax: XLA:CPU's bf16 sigmoid
+    # moves s8 activations by a step or two, the heads by a few bf16 ulps.
+    scale = float(np.abs(np.asarray(jl)).max())
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=0.05 * scale)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=0.05)
 
 
 def test_eval_fns_agree_and_default_calibration(nets):

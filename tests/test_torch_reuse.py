@@ -14,6 +14,7 @@ from alphazero_tpu_torch.mcts.search import HostReuseSearch, MCTSConfig, reroot,
 from alphazero_tpu_torch.models.stub import make_uniform_eval_fn
 from alphazero_tpu_torch.selfplay.actor import SelfPlayConfig, make_host_actor
 from test_torch_search import evaluators, peaked_evaluators, roots
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N = 7
 A = N * N

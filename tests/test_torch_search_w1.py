@@ -23,6 +23,7 @@ from alphazero_tpu_torch.mcts import search as tsearch
 from alphazero_tpu_torch.models.stub import make_uniform_eval_fn
 from alphazero_tpu_torch.scripts import self_play
 from test_torch_search import evaluators, roots
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 DUMP = os.path.join(REPO, "tools", "parity", "reference_dump_gomoku15.json")

@@ -20,6 +20,7 @@ from alphazero_tpu_torch.mcts.search import MCTSConfig
 from alphazero_tpu_torch.models.stub import make_uniform_eval_fn
 from alphazero_tpu_torch.scripts import self_play
 from alphazero_tpu_torch.selfplay import actor as tactor
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, B, MOVES = 5, 8, 14
 

@@ -38,6 +38,7 @@ from alphazero_tpu_torch.training import learner as tlearner
 from alphazero_tpu_torch.training import replay as treplay
 from alphazero_tpu_torch.training import schedulers as tsched
 from alphazero_tpu_torch.training.loss import alphazero_loss
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N = 5
 A = N * N
