@@ -37,6 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from alphazero_tpu_torch.parallel import distributed
+
 BN_EPS = 1e-5  # flax nn.BatchNorm default
 GN_EPS = 1e-6  # flax nn.GroupNorm default
 # flax's truncated-normal variance scaling divides the std by the std of a
@@ -67,7 +69,11 @@ class Identity(nn.Identity):
 
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm over NCHW with flax's statistics.  ``momentum`` is flax's
-    (the running average keeps ``momentum`` of its old value)."""
+    (the running average keeps ``momentum`` of its old value).  Under a
+    process group of several ranks, train mode averages the per-channel
+    mean and mean of squares over the ranks before the variance and the
+    running statistics (a differentiable all-reduce), so every rank
+    normalises by the global batch's statistics."""
 
     def __init__(self, channels: int, momentum: float):
         super().__init__(channels, eps=BN_EPS, momentum=1.0 - momentum)
@@ -79,7 +85,13 @@ class BatchNorm(nn.BatchNorm2d):
                                 self.weight, self.bias, False, 0.0, self.eps)
         x32 = x.float()
         mean = x32.mean((0, 2, 3))
-        var = ((x32 * x32).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
+        sq = (x32 * x32).mean((0, 2, 3))
+        n = distributed.world_size()
+        if n > 1:
+            # The global batch's moments, as GSPMD gives the JAX learner:
+            # each rank holds an equal share of the batch.
+            mean, sq = distributed.all_sum(torch.stack([mean, sq])) / n
+        var = (sq - mean * mean).clamp(min=0.0)
         with torch.no_grad():
             m = self.flax_momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

@@ -18,6 +18,13 @@ with checkpoints and ``history.json`` under ``--checkpoint-dir``.
     python -m alphazero_tpu_torch.scripts.train --model randwire
                             # DDW-RandWire (4 blocks unless --blocks)
 
+Data-parallel over several processes (one card each, NCCL; gloo with
+``--device cpu``): each rank plays and trains on its share of the games and
+of each batch, and the gradients are averaged (``parallel/``)::
+
+    torchrun --nproc-per-node 4 -m alphazero_tpu_torch.scripts.train \
+        --config config/gomoku_15x15.json
+
 ``--model randwire`` trains ``models/randwire.DDWRandWireResNet`` with
 ``--blocks`` and ``--channels`` (the JAX CLI reads the flag but builds the
 ResNet whatever it says).
@@ -143,7 +150,10 @@ def main(argv=None):
                         format="%(asctime)s %(name)s %(message)s")
     args = build_parser().parse_args(argv)
 
+    from alphazero_tpu_torch.parallel import distributed
     from alphazero_tpu_torch.training.pipeline import Pipeline, PipelineConfig
+
+    distributed.initialize(device=args.device)  # torchrun's environment
 
     if args.config:
         from alphazero_tpu_torch.utils.config import load_config

@@ -7,7 +7,10 @@ keeps the segment boundary for ``value_targets_recycled``.  With
 ``MCTSConfig.tree_reuse`` each lane's tree is kept between moves and
 re-rooted on the played action (``HostReuseSearch``).
 
-Not ported yet: the scan-driven ``play_games``/``move_once``.
+``play_games``/``move_once`` are the JAX package's scanned actor: exactly
+``max_moves`` moves, each a fresh ``search`` whose ``action_weights`` are
+the recorded policy, with no early stop and no tree reuse.
+``make_host_actor`` is the host-driven actor the pipeline runs by default.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import torch
 
 from alphazero_tpu_torch.core.types import stack_states, where_lanes
 from alphazero_tpu_torch.mcts.search import (
-    EvalFn, HostReuseSearch, MCTSConfig, make_host_search, select_action,
+    EvalFn, HostReuseSearch, MCTSConfig, check_config, make_host_search,
+    search, select_action,
 )
 
 
@@ -84,6 +88,42 @@ def _step_and_record(env, states, action, policy, root_value, active,
     return new_states, record
 
 
+def _temperature(states, config: SelfPlayConfig) -> torch.Tensor:
+    return torch.where(states.move_count < config.temperature_drop_move,
+                       config.temperature, config.final_temperature).float()
+
+
+@torch.no_grad()
+def move_once(env, eval_fn: EvalFn, states, generator: torch.Generator | None,
+              config: SelfPlayConfig, record_states: bool = False):
+    """One move for every lane: search -> temperature select -> step.
+    Returns ``(new_states, MoveRecord)``; the policy is the search's
+    ``action_weights``."""
+    out = search(env, eval_fn, states, config.mcts, generator)
+    action = select_action(generator, out.visit_counts,
+                           _temperature(states, config))
+    active = ~env.terminal_flag(states)
+    return _step_and_record(env, states, action, out.action_weights,
+                            out.root_value, active, config, record_states)
+
+
+def play_games(env, eval_fn: EvalFn, generator: torch.Generator | None,
+               config: SelfPlayConfig, batch_size: int, initial_states=None,
+               record_states: bool = False, device="cuda") -> SelfPlayOutput:
+    """Play ``config.max_moves`` moves of ``batch_size`` games from
+    ``initial_states`` (default: fresh games on ``device``); lanes whose
+    game ended step as no-ops (or restart, with ``recycle``)."""
+    check_config(config.mcts)
+    states = (initial_states if initial_states is not None
+              else env.init(batch_size, device=device))
+    records = []
+    for _ in range(config.max_moves):
+        states, rec = move_once(env, eval_fn, states, generator, config,
+                                record_states)
+        records.append(rec)
+    return stack_records(env, states, records)
+
+
 def stack_records(env, final_states, records) -> SelfPlayOutput:
     """The ``SelfPlayOutput`` of a host-driven move loop: its per-move
     ``MoveRecord``s stacked along a leading T axis, and the final states."""
@@ -147,9 +187,8 @@ def make_host_actor(env, eval_fn: EvalFn, config: SelfPlayConfig,
     @torch.no_grad()
     def step(states, generator: torch.Generator | None = None):
         out = run_search(states, generator)
-        temp = torch.where(states.move_count < config.temperature_drop_move,
-                           config.temperature, config.final_temperature).float()
-        action = select_action(generator, out.visit_counts, temp)
+        action = select_action(generator, out.visit_counts,
+                               _temperature(states, config))
         active = ~env.terminal_flag(states)
         counts = out.visit_counts
         policy = counts / counts.sum(-1, keepdim=True).clamp(min=1)

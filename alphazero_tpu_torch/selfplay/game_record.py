@@ -5,8 +5,9 @@ thinking_time_ms}], result, timestamp``.  Stored policies are
 full-action-space visit distributions.
 
 ``records_to_training_arrays`` replays records through the env into
-training arrays.  Not ported yet: the optional native encoder (records are
-written with ``json``).
+training arrays.  ``to_json_bytes`` uses the native encoder
+(``native/azrecord.cpp``) where it builds, else ``json``: both write the
+same bytes.
 """
 from __future__ import annotations
 
@@ -89,7 +90,27 @@ class GameRecord:
         return rec
 
     def to_json_bytes(self) -> bytes:
-        return json.dumps(self.to_json()).encode()
+        """``json.dumps(self.to_json()).encode()``, written by the native
+        encoder where it is available."""
+        from alphazero_tpu_torch.native import get_azrecord
+
+        mod = get_azrecord()
+        if mod is None:
+            return json.dumps(self.to_json()).encode()
+        moves = self.moves
+        lens = [len(m.policy) for m in moves]
+        offsets = np.zeros(len(moves) + 1, np.int64)
+        np.cumsum(lens, out=offsets[1:])
+        policies = np.fromiter((p for m in moves for p in m.policy),
+                               np.float64, count=int(offsets[-1]))
+        return mod.encode_game(
+            int(self.game_type), int(self.board_size),
+            bool(self.use_variant_rules),
+            np.array([int(m.action) for m in moves], np.int64), policies,
+            offsets, np.array([float(m.value) for m in moves], np.float64),
+            np.array([int(m.thinking_time_ms) for m in moves], np.int64),
+            int(self.result),
+            self.timestamp or time.strftime("%Y-%m-%dT%H:%M:%S"))
 
     def save(self, path: str):
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

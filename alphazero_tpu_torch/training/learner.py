@@ -9,6 +9,12 @@ and norm scales included, or, for ``optimizer="sgd"``, weight decay added
 to the gradient and momentum SGD.  The learning rate of update ``k`` is
 ``schedule(k)``, counted from 0 as optax counts.  ``train_step`` runs the
 model in train mode, so BatchNorm's running statistics update.
+
+Under a process group of several ranks each rank passes ``train_step`` its
+equal share of the global batch: the gradients are averaged over the ranks
+between ``backward()`` and the global norm, so the clip sees the global
+batch's gradient, and the loss metrics are averaged too (the loss is a
+plain mean, so the mean of equal shards' means is the global mean).
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
+from alphazero_tpu_torch.parallel import distributed
 from alphazero_tpu_torch.training import schedulers
 from alphazero_tpu_torch.training.loss import alphazero_loss
 
@@ -94,6 +101,16 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
+@torch.no_grad()
+def _average_over_ranks(grads: List[torch.Tensor]) -> None:
+    """Each gradient replaced by its mean over the ranks, in one
+    all-reduce of the flattened gradients."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    distributed.all_mean_(flat)
+    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(v.view_as(g))
+
+
 def train_step(state: TrainState, batch, config: LearnerConfig
                ) -> Tuple[TrainState, TrainMetrics]:
     """One update on ``batch`` (``replay.Batch``: obs, policy, value).
@@ -106,6 +123,8 @@ def train_step(state: TrainState, batch, config: LearnerConfig
     opt.zero_grad(set_to_none=False)
     out.total.backward()
     grads = [p.grad for group in opt.param_groups for p in group["params"]]
+    if distributed.world_size() > 1:
+        _average_over_ranks(grads)
     gnorm = global_norm(grads)
     if config.grad_clip_norm and config.grad_clip_norm > 0:
         clip_by_global_norm(grads, config.grad_clip_norm, gnorm)
@@ -115,4 +134,7 @@ def train_step(state: TrainState, batch, config: LearnerConfig
     opt.step()
     metrics = TrainMetrics(out.total.detach(), out.policy_loss.detach(),
                            out.value_loss.detach(), gnorm.detach())
+    if distributed.world_size() > 1:  # local means of equal shards
+        losses = distributed.all_mean_(torch.stack(metrics[:3]))
+        metrics = TrainMetrics(*losses, metrics.grad_norm)
     return dataclasses.replace(state, step=state.step + 1), metrics

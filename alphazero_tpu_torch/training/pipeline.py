@@ -1,12 +1,15 @@
 """End-to-end training pipeline: actor -> replay -> learner (counterpart of
-``alphazero_tpu/training/pipeline.py``), on one device.
+``alphazero_tpu/training/pipeline.py``), on one device or data-parallel
+over the ranks of a process group.
 
 Each iteration refreshes the actor's inference parameters from the
 learner's weights (``PipelineConfig.inference``: the production int8
 executor re-calibrated on rollouts of the refreshed net, the BN-folded bf16
 net, or the raw module), plays ``games_per_iteration`` lanes of self-play
-with the host actor, writes the finished positions into the replay ring and
-runs ``train_steps_per_iteration`` sampled AdamW steps.  Checkpoints are
+with the host actor (or, with ``host_actor=False``, the scanned actor
+``play_games``: every ``max_moves`` move, no early stop), writes the
+finished positions into the replay ring and runs
+``train_steps_per_iteration`` sampled AdamW steps.  Checkpoints are
 ``torch.save`` files holding the model and optimizer state, the update
 count, the generator state and optionally the replay ring; the last three
 are kept.  ``history.json`` records every iteration.
@@ -15,8 +18,16 @@ are kept.  ``history.json`` records every iteration.
 ``model_options`` (``models/io.build_model``); it has no BatchNorm, so its
 actor runs the module as it is ("raw"), as the JAX pipeline's does.
 
-Not ported yet: the scanned actor (``host_actor=False``) and the device
-mesh (one device only).
+Data parallelism (``mesh``, ``parallel/mesh.py``): each rank plays its
+``games_per_iteration / n`` lanes from its own actor generator (seeded
+from the seed and the rank, so ranks play different games; one rank's
+actor draws from the pipeline's generator, as before), and the host
+actor stops early only when every rank's lanes are done.  The records are
+gathered along the lane axis before they enter the ring, so every rank
+holds the whole ring in one rank's order; each training batch is drawn
+whole from a generator seeded alike on every rank, each rank trains on its
+share, and the learner averages the gradients (``training/learner.py``).
+Rank 0 alone writes checkpoints and ``history.json``; every rank restores.
 """
 from __future__ import annotations
 
@@ -28,6 +39,7 @@ import os
 import re
 import resource
 import time
+import zlib
 from typing import Dict, List, Optional
 
 import torch
@@ -39,9 +51,11 @@ from alphazero_tpu_torch.models.io import build_model
 from alphazero_tpu_torch.models.resnet import (
     AZResNet, ResNetConfig, make_inference_eval_fn,
 )
+from alphazero_tpu_torch.parallel import distributed
+from alphazero_tpu_torch.parallel import mesh as meshlib
 from alphazero_tpu_torch.selfplay.actor import (
-    SelfPlayConfig, SelfPlayOutput, make_host_actor, stack_records,
-    value_targets, value_targets_recycled,
+    SelfPlayConfig, SelfPlayOutput, make_host_actor, play_games,
+    stack_records, value_targets, value_targets_recycled,
 )
 from alphazero_tpu_torch.selfplay.game_record import (
     load_records_dir, records_to_training_arrays,
@@ -78,7 +92,9 @@ class PipelineConfig:
     checkpoint_dir: str = "checkpoints"
     checkpoint_every: int = 5
     checkpoint_replay: bool = False
-    host_actor: bool = True  # the scanned actor (False) is not ported yet
+    # The host-driven actor (stops once every game is done), or (False) the
+    # scanned actor: all ``max_moves`` moves.
+    host_actor: bool = True
     # Actor inference: "int8" (production executor), "folded" (BN folded,
     # bf16) or "raw" (the learner's module as it is; debugging only).
     inference: str = production.INFERENCE
@@ -91,14 +107,16 @@ class PipelineConfig:
 
 
 class Pipeline:
-    """Actor/learner alternation on ``device`` (default ``cuda``)."""
+    """Actor/learner alternation on ``device`` (default ``cuda``), over the
+    ranks of ``mesh`` (default: every rank of the current process group,
+    one rank where there is none)."""
 
-    def __init__(self, config: PipelineConfig, device="cuda"):
-        if not config.host_actor:
-            raise NotImplementedError(
-                "the scanned actor (host_actor=False) is not ported yet")
+    def __init__(self, config: PipelineConfig, device="cuda", mesh=None):
         self.config = config
         self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None else meshlib.make_mesh()
+        self.local_games = meshlib.local_batch_size(config.games_per_iteration,
+                                                    self.mesh)
         self.env = registry.create_game(config.game, config.board_size,
                                         **dict(config.game_options))
         # The initial weights come from a CPU generator, so every device
@@ -112,17 +130,27 @@ class Pipeline:
             model, _ = build_model(config.model_kind, self.env.num_actions,
                                    dict(config.model_options),
                                    self.env.observation_shape, gen)
-        self.state = create_train_state(model.to(self.device), config.learner)
+        model = meshlib.replicate(self.mesh, model.to(self.device))
+        self.state = create_train_state(model, config.learner)
+        # Calibration and replay sampling: alike on every rank.
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.seed)
+        # Self-play noise and move choices: each rank its own; one rank
+        # draws them from ``generator`` itself.
+        self.actor_generator = self.generator
+        if self.mesh.size > 1:
+            actor_seed = zlib.crc32(
+                f"actor:{config.seed}:{distributed.rank()}".encode())
+            self.actor_generator = torch.Generator(
+                device=self.device).manual_seed(actor_seed)
         self.buffer = replay.create(self.env, config.replay_capacity,
                                     self.env.num_actions, self.device)
         self.history: List[Dict] = []
         self.eval_tree = None  # the actor's current inference parameters
         self._eval_params = self._build_eval()
         self._host_step, self._host_init = make_host_actor(
-            self.env, self.evaluate, config.selfplay,
-            config.games_per_iteration, device=self.device, record_states=True)
+            self.env, self.evaluate, config.selfplay, self.local_games,
+            device=self.device, record_states=True)
 
     # ---- internals -------------------------------------------------------
 
@@ -169,19 +197,43 @@ class Pipeline:
             torch.cuda.synchronize(self.device)
 
     def _run_actor(self) -> SelfPlayOutput:
-        """Host-driven move loop from fresh games; breaks (at 16-move
-        granularity) once every lane is finished.  A kept search tree
-        (``tree_reuse``) is dropped first: it belongs to the last run's
-        games (the JAX pipeline re-roots it onto the fresh boards)."""
+        """This rank's lanes from fresh games, then every rank's records
+        gathered along the lane axis.  The host actor breaks (at 16-move
+        granularity) once every lane of every rank is finished; its kept
+        search tree (``tree_reuse``) is dropped first: it belongs to the
+        last run's games (the JAX pipeline re-roots it onto the fresh
+        boards)."""
+        cfg = self.config
+        if not cfg.host_actor:
+            out = play_games(self.env, self.evaluate, self.actor_generator,
+                             cfg.selfplay, self.local_games,
+                             initial_states=self._host_init,
+                             record_states=True)
+            return self._gather_output(out)
         self._host_step.reset()
         states = self._host_init
         recs = []
-        for t in range(self.config.selfplay.max_moves):
-            states, rec = self._host_step(states, self.generator)
+        for t in range(cfg.selfplay.max_moves):
+            states, rec = self._host_step(states, self.actor_generator)
             recs.append(rec)
-            if (t + 1) % 16 == 0 and bool(self.env.terminal_flag(states).all()):
+            if (t + 1) % 16 == 0 and distributed.all_true(
+                    bool(self.env.terminal_flag(states).all()), self.device):
                 break
-        return stack_records(self.env, states, recs)
+        return self._gather_output(stack_records(self.env, states, recs))
+
+    def _gather_output(self, out: SelfPlayOutput) -> SelfPlayOutput:
+        """Every rank's lanes in data order: [T, B] records along axis 1,
+        per-lane results along axis 0."""
+        if self.mesh.size == 1:
+            return out
+        g = self.mesh.gather
+        return SelfPlayOutput(
+            states=out.states.map(lambda x: g(x, 0)),
+            actions=g(out.actions, 1), policies=g(out.policies, 1),
+            root_values=g(out.root_values, 1), to_play=g(out.to_play, 1),
+            active=g(out.active, 1), ended_winner=g(out.ended_winner, 1),
+            winner=g(out.winner, 0), length=g(out.length, 0),
+            move_states=out.move_states.map(lambda x: g(x, 1)))
 
     def _add(self, states, policy, z, mask):
         """Flatten [T, B] records into the replay ring."""
@@ -202,13 +254,28 @@ class Pipeline:
             z, mask = value_targets(out), out.active
         self._add(out.move_states, out.policies, z, mask)
 
+    def _sample(self) -> replay.Batch:
+        """The global batch's indices and symmetries, drawn alike on every
+        rank (in the order ``replay.sample`` draws them); this rank's share
+        of them, sampled."""
+        cfg, buf = self.config, self.buffer
+        B, dev = cfg.train_batch_size, buf.policy.device
+        idx = torch.randint(0, max(buf.size, 1), (B,), generator=self.generator,
+                            device=dev)
+        syms = None
+        if cfg.augment and replay.has_dihedral(self.env):
+            syms = torch.randint(0, 8, (B,), generator=self.generator,
+                                 device=dev)
+        idx, syms = meshlib.shard_batch(self.mesh, (idx, syms))
+        return replay.sample(buf, self.env, None, idx.shape[0], cfg.augment,
+                             idx=idx, syms=syms)
+
     def train(self) -> Dict[str, float]:
         """``train_steps_per_iteration`` sampled steps; mean metrics."""
         cfg = self.config
         total = None
         for _ in range(cfg.train_steps_per_iteration):
-            batch = replay.sample(self.buffer, self.env, self.generator,
-                                  cfg.train_batch_size, cfg.augment)
+            batch = self._sample()
             self.state, m = train_step(self.state, batch, cfg.learner)
             step = torch.stack(list(m))
             total = step if total is None else total + step
@@ -224,17 +291,36 @@ class Pipeline:
 
     def ingest_record_files(self, games_dir: str) -> int:
         """Fill the replay ring from saved GameRecord JSONs; returns the
-        number of positions ingested."""
+        number of positions ingested.  Under several ranks each rank reads
+        its own shard of records and every rank's positions enter every
+        rank's ring, rank by rank."""
         records = load_records_dir(games_dir)
         if not records:
             raise ValueError(f"no .json game records in {games_dir}")
         states, policy, z, mask = records_to_training_arrays(
             self.env, records, device=self.device)
+        if self.mesh.size > 1:
+            states, policy, z, mask = self._gather_rows(states, policy, z, mask)
         self._add(states, policy, z, mask)
         n = int(mask.sum())
         log.info("ingested %d positions from %d records in %s",
                  n, len(records), games_dir)
         return n
+
+    def _gather_rows(self, states, policy, z, mask):
+        """[T, G] arrays of every rank as [1, rows]: each rank's rows
+        flattened, padded with masked-out rows to the longest rank's, and
+        concatenated in data order."""
+        T, G = z.shape
+        rows = torch.tensor([T * G], device=self.device)
+        longest = max(int(r) for r in distributed.all_gather(rows))
+
+        def flat(x):
+            x = x.reshape((T * G,) + x.shape[2:])
+            pad = x.new_zeros((longest - T * G,) + x.shape[1:])
+            return self.mesh.gather(torch.cat([x, pad]), 0)[None]
+
+        return states.map(flat), flat(policy), flat(z), flat(mask)
 
     def run_training_only(self, iterations: int) -> List[Dict]:
         """Learner-only iterations over the current replay ring (offline
@@ -326,12 +412,24 @@ class Pipeline:
         return os.path.join(self._checkpoint_dir(), f"ckpt_{it}.pt")
 
     def save_checkpoint(self, it: int) -> str:
+        """Rank 0 writes checkpoint ``it`` (with every rank's actor
+        generator); the other ranks wait for it."""
+        actor_gens = distributed.all_gather_object(
+            self.actor_generator.get_state())
+        path = self._checkpoint_path(it)
+        if distributed.rank() == 0:
+            self._write_checkpoint(path, actor_gens)
+        distributed.barrier()
+        return path
+
+    def _write_checkpoint(self, path: str, actor_gens: list) -> None:
         os.makedirs(self._checkpoint_dir(), exist_ok=True)
         payload = {
             "model": self.state.module.state_dict(),
             "optimizer": self.state.optimizer.state_dict(),
             "step": self.state.step,
             "generator": self.generator.get_state(),
+            "actor_generators": actor_gens,
         }
         if self.config.checkpoint_replay:
             buf = self.buffer
@@ -341,13 +439,11 @@ class Pipeline:
                 "policy": buf.policy, "value": buf.value,
                 "position": buf.position, "size": buf.size,
             }
-        path = self._checkpoint_path(it)
         torch.save(payload, path + ".tmp")
         os.replace(path + ".tmp", path)
         for old in self.checkpoints()[:-KEEP_CHECKPOINTS]:
             os.remove(self._checkpoint_path(old))
-        self.save_history()
-        return path
+        self._write_history()
 
     def restore_checkpoint(self, it: Optional[int] = None) -> int:
         """Load checkpoint ``it`` (default: the latest); returns ``it``."""
@@ -363,6 +459,9 @@ class Pipeline:
         self.state.optimizer.load_state_dict(payload["optimizer"])
         self.state = dataclasses.replace(self.state, step=payload["step"])
         self.generator.set_state(payload["generator"])
+        actor_gens = payload.get("actor_generators", [])
+        if len(actor_gens) == distributed.world_size():
+            self.actor_generator.set_state(actor_gens[distributed.rank()])
         if self.config.checkpoint_replay and "replay" in payload:
             r, buf = payload["replay"], self.buffer
             for name, x in r["states"].items():
@@ -373,6 +472,11 @@ class Pipeline:
         return it
 
     def save_history(self) -> None:
+        """Rank 0 writes ``history.json``."""
+        if distributed.rank() == 0:
+            self._write_history()
+
+    def _write_history(self) -> None:
         os.makedirs(self._checkpoint_dir(), exist_ok=True)
         with open(os.path.join(self._checkpoint_dir(), "history.json"), "w") as f:
             json.dump(self.history, f, indent=2)

@@ -92,18 +92,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      [main]'s; its kernel calls held against their plain versions;
  11. [arena]: a 7x7 play_match_sides (one side with tree reuse) and
      play_match_host on the card against the CPU (winners and final boards
-     equal); the flagship (BN-folded bf16, 64 simulations, cut from 128) against the four
-     anchors, 8 games each (cut from 16), Bradley-Terry pinned at
-     uniform_mcts_256 = 1500, at least three quarters of the games against
-     uniform_mcts_16; scripts/evaluate.py as a subprocess, its JSON keys
-     equal to the JAX CLI's; kernel calls held against their plain versions;
+     equal); scripts/evaluate.py as a subprocess, its JSON keys equal to
+     the JAX CLI's; kernel calls held against their plain versions (the
+     flagship's anchored ladder moved to [anchor_eval], slice 12);
  12. Go (slice 9): [go_exact] 4,096 random-playout 9x9 positions (0-120
      plies) and 1,024 at 19x19 (0-240), played on the card, against the
      CPU exactly (masks, observations, both rule sets' scores with and
      without dead stones, ownership, hashes, arena rows, one more step);
      [go_search] card vs CPU at 9x9 (B=64, 128 simulations, W=16, W=1 and
      W=1 with a 256-entry table); [go_main] (models_zoo/go9, int8 with
-     rollout calibration, 400 simulations, cut from 800) and [go19_main] (a fresh 6x64
+     rollout calibration, 192 simulations, cut from 800) and [go19_main] (a fresh 6x64
      net at 19x19, 192 simulations, cut from 800) as [main] at B=1024,
      W=16, 2 moves, with one wave's env
      ms (step, legal_mask, observation) and host syncs; [go_train_config]:
@@ -125,10 +123,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      card vs CPU (B=64, 128 simulations, W=16 and W=1, each with a
      256-entry table: counts, actions, hits, stores) and the mate in one
      (Qh5#) at W=16 and W=1; [chess_main] models_zoo/chess_dev on the int8
-     executor as [main] (B=1024, W=16, 400 simulations, cut from 800, 2 moves; s8_mm
-     exactly 13 x 802 a move) and one wave's env ms and host syncs on
+     executor as [main] (B=1024, W=16, 192 simulations, cut from 800, 2 moves; s8_mm
+     exactly 13 x 386 a move) and one wave's env ms and host syncs on
      1,024 mid-game roots (40 random plies) x 16; [chess_train_config]
-     config/chess.json cut in depth (2 iterations of 8 moves (cut from 16), 64
+     config/chess.json cut in depth (2 iterations of 4 moves (cut from 16), 64
      simulations, 4 train steps), its last checkpoint reloaded bit for
      bit; [chess_arena] chess_dev (BN-folded bf16, 128 simulations)
      against uniform_mcts_16, 16 games, 4 opening plies, T=0.1, 160 plies
@@ -142,7 +140,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      channels, head kernels drawn too) on the card against the CPU on 256
      random-playout 15x15 observations, in f32 (TF32 off) and bf16;
      [randwire_main] a freshly seeded RandWireConfig() net on its raw bf16
-     evaluator as [main] (B=1024, W=16, 800 simulations, 2 moves), with one
+     evaluator as [main] (B=1024, W=16, 192 simulations (cut from 800), 2
+     moves), with one
      wave's env ms and host syncs on 1,024 mid-game roots; [randwire_train]
      scripts/train.py --model randwire at config/gomoku_15x15.json's shape
      cut in depth (printed), its checkpoint reloaded bit for bit and its
@@ -160,7 +159,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      move, a bad game (400), a call without the key (401) and the page,
      each request's latency; every path's kernel calls held against their
      plain versions;
- 15. summary: one JSON line of kernels, then the final status line.
+ 15. slice 12: [scan_main] the scanned actor (selfplay/actor.play_games)
+     with the production int8 executor at [main]'s width (B=1024, W=16,
+     K=32, recycle, T=1), 2 moves at 192 simulations (the cut), s8_mm
+     exactly as the evaluated batches predict, the first move's actions
+     equal to the host actor's from the same generator; [scan_pipeline]
+     config/gomoku_15x15.json with host_actor false (256 games, W=1, the
+     GroupNorm net raw), cut to 2 iterations of 4 moves, 64 simulations, 2
+     train steps; [dist_one] a one-rank NCCL group: one learner step of the
+     flagship at batch 1024 (f32, deterministic cuDNN) bit-equal to the
+     same step with no group, and one Pipeline(mesh=) iteration of the
+     6x64 BatchNorm net on the int8 executor (256 games, 4 moves, 32
+     simulations) under it; [dist_two] two processes of this script
+     (--dist-worker) joined by gloo, both on cuda:0: the learner step at
+     batch 1024 (512 a rank) against one process's (loss and running
+     statistics within the CPU test's tolerances; gradients and parameters
+     no further off than one process's step on the rows in another order),
+     and one Pipeline(mesh=) iteration at 256 games (128 a
+     rank, no root noise, T=0) whose ring equals one process's; learner
+     steps/s of each; [scripts] regression_test.py --device cuda (every
+     check ok), benchmark.py at B=1024, 6x64 cut to 64 simulations,
+     hyperopt.py cut to 2 trials of 1 iteration (9x9, 32 games, 8
+     simulations); [records] 64 of [scan_main]'s games encoded by the
+     native encoder and by json: equal bytes, both times; [anchor_eval]
+     scripts/anchor_eval.py on the flagship (BN-folded bf16, 64 simulations,
+     cut from 800) against the four anchors, 8 games each (cut from 64),
+     with the round-robin of docs/anchor_table.json, at least three
+     quarters against uniform_mcts_16 (the ladder [arena] ran until slice
+     12); [plugins] a plugin game (load_directory of a temporary
+     *_plugin.py) searched on the card; every path's kernel calls held
+     against their plain versions;
+ 16. summary: one JSON line of kernels, then the final status line.
 
 gather_rows times are taken with warm L2 (the search re-reads the same
 arenas within a wave); its ``bound_ms`` counts the bytes the call must move
@@ -181,6 +210,7 @@ import dataclasses
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import time
@@ -1038,7 +1068,9 @@ def _reload_checkpoint(config, keep: list | None = None) -> bool:
             and all(torch.equal(sd[k].cpu(), v) for k, v in saved["model"].items())
             and all(torch.equal(opt[i][n].cpu(), v)
                     for i, st in saved["optimizer"]["state"].items() for n, v in st.items())
-            and torch.equal(fresh.generator.get_state(), saved["generator"]))
+            and torch.equal(fresh.generator.get_state(), saved["generator"])
+            and torch.equal(fresh.actor_generator.get_state(),
+                            saved["actor_generators"][0]))
 
 
 def _playout_states(env, B: int, max_plies: int, gen) -> object:
@@ -1193,34 +1225,23 @@ def _jax_cli_keys(path: str) -> list:
     raise AssertionError(f"no printed JSON dict in {path}")
 
 
-def phase_arena(model_path, games: int = 16, cand_sims: int = 128) -> dict:
+def phase_arena() -> dict:
     """Evaluation on the card.
 
     1. Card against CPU at 7x7, temperature 0, no openings: play_match_sides
        (the uniform stub, value 0, at 32 simulations with tree reuse against
        ``_integer_value_eval`` at 16) and play_match_host (24 simulations,
        the same two nets); every lane's winner and final board equal.
-    2. The anchored ladder: the flagship bundle as ``scripts/evaluate.py``
-       loads it (BN-folded bf16) at ``cand_sims`` simulations, W=16,
-       against each ``POOL`` anchor through play_match_sides, ``games``
-       games each, 6 mirrored opening plies, T=0.1, 225 moves at most;
-       Bradley-Terry with uniform_mcts_256 at 1500, from this run's matches
-       alone and with the anchors' round-robin in docs/anchor_table.json.
-       Fails unless the flagship takes three quarters of the games
-       against uniform_mcts_16.
-    3. ``scripts/evaluate.py`` as a subprocess: its JSON keys equal the
+    2. ``scripts/evaluate.py`` as a subprocess: its JSON keys equal the
        JAX CLI's.
-    The kernel calls of the card runs of 1 and of the first ladder match
-    are held against their plain versions."""
+    The kernel calls of the card runs of 1 are held against their plain
+    versions.  The anchored ladder is [anchor_eval]'s (slice 12): the
+    anchor evaluation script on the flagship, with the gate this phase had."""
     from alphazero_tpu_torch.core import registry
-    from alphazero_tpu_torch.elo.bradley_terry import fit_bradley_terry
-    from alphazero_tpu_torch.eval import anchors
     from alphazero_tpu_torch.eval.arena import (
         ArenaConfig, play_match_host, play_match_sides)
     from alphazero_tpu_torch.mcts.search import MCTSConfig
     from alphazero_tpu_torch.models.stub import make_uniform_eval_fn
-    from alphazero_tpu_torch.ops.gather_rows import gather_rows
-    from alphazero_tpu_torch.scripts.evaluate import load_eval_fn
 
     out = {}
     env7 = registry.create_game("gomoku", 7)
@@ -1249,58 +1270,6 @@ def phase_arena(model_path, games: int = 16, cand_sims: int = 128) -> dict:
             raise AssertionError(f"arena card and CPU differ: {row}")
         out[f"card_vs_cpu_{kind}"] = row
     _check_recorded("arena card_vs_cpu", rec, each=False)
-
-    env = registry.create_game("gomoku", 15)
-    cand = (load_eval_fn(model_path, env, "cuda"),
-            MCTSConfig(num_simulations=cand_sims, wave_size=16, dirichlet_epsilon=0.0))
-    log("[arena] ladder depth: " + json.dumps({
-        "games_per_anchor": games, "candidate_simulations": cand_sims,
-        "wave": 16, "opening_plies": 6, "temperature": 0.1, "max_moves": 225}))
-    gen = torch.Generator(device="cuda").manual_seed(21)
-    rec, ladder, matches = _KernelCalls(), [], []
-    gather_rows.launches = 0
-    t_ladder = time.perf_counter()
-    for i, name in enumerate(anchors.POOL):
-        before = gather_rows.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with rec if i == 0 else contextlib.nullcontext():
-            res = play_match_sides(env, cand, anchors.make_anchor(env, name), gen, games,
-                                   max_moves=225, temperature=0.1,
-                                   opening_random_moves=6, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        lanes = res.winner.shape[0]
-        moves = int(res.states.move_count.sum()) - 6 * lanes
-        wa, wb, d = int(res.wins_a), int(res.wins_b), int(res.draws)
-        row = {"anchor": name, "result": f"+{wa} -{wb} ={d}", "wall_s": wall,
-               "moves": moves, "moves_per_s": moves / wall,
-               "plies_max": int(res.states.move_count.max()),
-               "gather_launches": gather_rows.launches - before}
-        log("[arena] flagship vs " + json.dumps(row))
-        ladder.append(row)
-        matches.append((f"flagship@{cand_sims}", name, wa, wb, d))
-    ladder_wall = time.perf_counter() - t_ladder
-    _check_recorded("arena ladder", rec, each=False)
-    with open(os.path.join(ROOT, "docs", "anchor_table.json")) as f:
-        table = [tuple(r) for r in json.load(f)]
-    fit = {k: fit_bradley_terry(m, anchor=anchors.CANONICAL,
-                                anchor_rating=anchors.CANONICAL_RATING)
-           for k, m in (("this_run", matches), ("with_anchor_table", matches + table))}
-    total_moves = sum(r["moves"] for r in ladder)
-    out["ladder"] = {
-        "matches": ladder, "bt_rating": {k: v[f"flagship@{cand_sims}"] for k, v in fit.items()},
-        "anchor_ratings_with_table": {a: fit["with_anchor_table"][a] for a in anchors.POOL},
-        "wall_s": ladder_wall, "moves_per_s": total_moves / ladder_wall,
-        "gather_launches": gather_rows.launches}
-    log("[arena] ladder: " + json.dumps({k: v for k, v in out["ladder"].items()
-                                         if k != "matches"}))
-    need = -(-3 * games // 4)
-    if matches[0][2] < need:
-        raise AssertionError(f"the flagship took {matches[0][2]} of {games} games "
-                             f"against {matches[0][1]}, fewer than {need}")
-    if gather_rows.launches <= 0:
-        raise AssertionError("the arena launched no gather_rows kernel")
 
     cmd = [sys.executable, "-m", "alphazero_tpu_torch.scripts.evaluate",
            "--model-a", os.path.join("models_zoo", "flagship_gomoku15"),
@@ -1595,10 +1564,10 @@ def phase_go(convs: int) -> dict:
     torch.cuda.synchronize()
     log(f"[go_main] calibration: {tuple(calib.shape)} rollout observations, "
         f"calibrated and quantised in {time.perf_counter() - t0:.2f} s")
-    log("[go_main] depth cut: 400 simulations (was 800)")
+    log("[go_main] depth cut: 192 simulations (was 800, then 400)")
     out["go_main"] = timed("go_main", phase_go_main, env9, int8_go9, convs,
                            positions[9].map(lambda x: x[:1024]), "go_main",
-                           sims=400)
+                           sims=192)
     env19 = registry.create_game("go", 19)
     fresh = AZResNet(env19.num_actions, obs_shape=env19.observation_shape,
                      generator=torch.Generator().manual_seed(0)).to("cuda")
@@ -2038,9 +2007,9 @@ def phase_chess() -> dict:
         walls[phase] = round(time.perf_counter() - t0, 1)
         return res
 
-    log("[chess_exact] depth cut: 128 plies (was 256); [chess_main] 400 "
-        "simulations (was 800); [chess_train_config] 8 moves an iteration "
-        "(was 16)")
+    log("[chess_exact] depth cut: 128 plies (was 256); [chess_main] 192 "
+        "simulations (was 800, then 400); [chess_train_config] 4 moves an "
+        "iteration (was 16, then 8)")
     out["exact"] = timed("chess_exact", phase_chess_exact, plies=128)
     out["search"] = timed("chess_search", phase_chess_search)
     t0 = time.perf_counter()
@@ -2053,9 +2022,9 @@ def phase_chess() -> dict:
         f"calibration: {tuple(calib.shape)} rollout observations, calibrated and "
         f"quantised in {time.perf_counter() - t0:.2f} s")
     out["chess_main"] = timed("chess_main", phase_chess_main, env, int8_eval,
-                              1 + 2 * model.cfg.num_blocks, sims=400)
+                              1 + 2 * model.cfg.num_blocks, sims=192)
     out["train_config"] = timed("chess_train_config", phase_train_config, "chess.json",
-                                "chess_train_config", {"selfplay.max_moves": 8},
+                                "chess_train_config", {"selfplay.max_moves": 4},
                                 reload=True)
     out["arena"] = timed("chess_arena", phase_chess_arena)
     out["cli"] = timed("chess_cli", phase_chess_cli)
@@ -2123,16 +2092,18 @@ def phase_randwire_exact(env) -> dict:
 
 def phase_randwire_main(env) -> dict:
     """A freshly seeded ``RandWireConfig()`` net on its raw bf16 evaluator
-    (the path its Pipeline actor takes) as [main]: B=1024, W=16, 800
-    simulations, K=32, 2 moves, the second timed; then one wave's env work
+    (the path its Pipeline actor takes) as [main]: B=1024, W=16, 192
+    simulations (cut from 800), K=32, 2 moves, the second timed; then one wave's env work
     on 1,024 mid-game roots (20 random plies) x 16 leaves."""
     from alphazero_tpu_torch.core.types import where_lanes
     from alphazero_tpu_torch.models.io import inference_eval_fn
     from alphazero_tpu_torch.scripts.profile_go_env import env_wave
 
     model = _randwire(env).cuda()
+    # Cut with the slice-12 phases, to hold the script under 650 s.
+    log("[randwire_main] depth cut: 192 simulations (was 800)")
     res = phase_main_path(env, inference_eval_fn(model), "randwire_raw_bf16",
-                          sims=800, moves=2, tag="randwire_main")
+                          sims=192, moves=2, tag="randwire_main")
     gen = torch.Generator(device="cuda").manual_seed(61)
     roots = env.init(1024)
     for _ in range(20):
@@ -2537,6 +2508,567 @@ def phase_slice11() -> dict:
     return out
 
 
+# ---- slice 12: the scanned actor, data parallelism, scripts, records ------
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_scan_main(env, int8_eval, convs: int, sims: int = 192) -> dict:
+    """``play_games`` (the scanned actor) with the production int8 executor
+    at [main]'s width: B=1024, W=16, K=32, recycle on, T=1 with root noise,
+    2 moves (the depth cut, printed).  s8_mm launches exactly as the
+    evaluated batches predict; the first move's actions equal the host
+    actor's from the same generator; the kernel calls of the run are held
+    against their plain versions.  Returns the output too, for [records]."""
+    from alphazero_tpu_torch import production
+    from alphazero_tpu_torch.mcts.search import MCTSConfig
+    from alphazero_tpu_torch.ops.gather_rows import gather_rows
+    from alphazero_tpu_torch.ops.s8_mm import s8_mm
+    from alphazero_tpu_torch.selfplay.actor import (
+        SelfPlayConfig, make_host_actor, play_games)
+
+    B, W, moves = 1024, 16, 2
+    log(f"[scan_main] depth cut: {moves} moves at {sims} simulations "
+        "(the main path: 800 simulations to the end of the game)")
+    batches = []
+
+    def counted_eval(obs, to_play=None):
+        batches.append(obs.shape[0])
+        return int8_eval(obs, to_play)
+
+    cfg = SelfPlayConfig(mcts=MCTSConfig(num_simulations=sims, wave_size=W,
+                                         max_children=32),
+                         max_moves=moves, recycle=True)
+    gather_rows.launches = 0
+    s8_mm.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _KernelCalls() as rec:
+        out = play_games(env, counted_eval, torch.Generator(device="cuda").manual_seed(3),
+                         cfg, B, record_states=True, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"gather_rows": gather_rows.launches, "s8_mm": s8_mm.launches}
+    expected = _s8_launches_expected(batches, convs, production.INT8_CHUNK)
+    step, states = make_host_actor(env, int8_eval, cfg, B, device="cuda")
+    _, host_rec = step(states, torch.Generator(device="cuda").manual_seed(3))
+    same_first = torch.equal(host_rec.action, out.actions[0])
+    held = _check_recorded("scan_main", rec, each=False)
+    res = {"B": B, "wave": W, "simulations": sims, "moves": moves, "wall_s": wall,
+           "moves_per_s": moves * B / wall, "launches": launches,
+           "s8_mm_launches_expected": expected, "evaluations": len(batches),
+           "first_move_equals_host_actor": same_first, "signatures": len(held),
+           "moves_played": int(out.length.sum())}
+    log("[scan_main] " + json.dumps(res))
+    if launches["s8_mm"] != expected or expected <= 0 or launches["gather_rows"] <= 0:
+        raise AssertionError(f"[scan_main] launches {launches}, s8_mm predicted {expected}")
+    if not same_first:
+        raise AssertionError("[scan_main] the first move differs from the host actor's")
+    if not (out.active.all() and torch.allclose(out.policies.sum(-1),
+                                                torch.ones((), device="cuda"))):
+        raise AssertionError("[scan_main] bad policies or inactive lanes")
+    res["output"] = out
+    return res
+
+
+def phase_records(env, out, games: int = 64) -> dict:
+    """``games`` of [scan_main]'s games as GameRecords, encoded by the
+    native encoder and by ``json``: the same bytes; the native module must
+    be the one used; both times (best of 3)."""
+    from alphazero_tpu_torch import native
+    from alphazero_tpu_torch.selfplay.game_record import records_from_selfplay
+
+    records = records_from_selfplay(env, out, max_games=games)
+    mod = native.get_azrecord()
+    if mod is None:
+        raise AssertionError("[records] the native encoder did not build")
+    times = {}
+    for kind, encode in (("native", lambda r: r.to_json_bytes()),
+                         ("json", lambda r: json.dumps(r.to_json()).encode())):
+        best = None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            data = [encode(r) for r in records]
+            dt = time.perf_counter() - t0
+            best = dt if best is None else min(best, dt)
+        times[kind] = (best, data)
+    equal = times["native"][1] == times["json"][1]
+    res = {"records": len(records), "bytes": sum(len(d) for d in times["json"][1]),
+           "native_s": times["native"][0], "json_s": times["json"][0],
+           "speedup": times["json"][0] / times["native"][0], "bytes_equal": equal,
+           "native_module": mod.__file__ and os.path.relpath(mod.__file__, ROOT)}
+    log("[records] " + json.dumps(res))
+    if not equal:
+        raise AssertionError("[records] native bytes differ from json's")
+    return res
+
+
+def _dist_learner(model_path, env, batch, rows=None, timed_steps: int = 5):
+    """One train_step of the flagship bundle in f32 (TF32 off,
+    deterministic cuDNN) on ``batch`` (its ``rows``, where given): the
+    metrics, gradients, parameters and running statistics after it; then
+    ``timed_steps`` more steps, timed (steps/s)."""
+    from alphazero_tpu_torch.models.io import load_model
+    from alphazero_tpu_torch.training import learner, replay
+
+    model, _ = load_model(model_path, env.observation_shape, device="cuda")
+    model.cfg = dataclasses.replace(model.cfg, dtype=torch.float32)
+    cfg = learner.LearnerConfig(learning_rate=1e-3, scheduler="constant",
+                                warmup_steps=0)
+    state = learner.create_train_state(model, cfg)
+    b = replay.Batch(*(x if rows is None else x[rows] for x in batch))
+    b = replay.Batch(*(x.cuda() for x in b))
+    with _deterministic():
+        state, m = learner.train_step(state, b, cfg)
+        res = {"loss": [float(x) for x in m],
+               "grads": {k: p.grad.to("cpu", copy=True)
+                         for k, p in model.named_parameters()},
+               "params": {k: p.detach().to("cpu", copy=True)
+                          for k, p in model.named_parameters()},
+               "stats": {k: v.to("cpu", copy=True) for k, v in model.named_buffers()
+                         if "running" in k}}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed_steps):
+            state, m = learner.train_step(state, b, cfg)
+        float(m.loss)
+        res["steps_per_s"] = timed_steps / (time.perf_counter() - t0)
+    return res
+
+
+def _dist_batch(env, B: int = 1024):
+    rng = np.random.RandomState(15)
+    obs = env.observation(_random_states(env, B, 60, seed=15, device="cpu"))
+    policy = torch.softmax(torch.from_numpy(
+        rng.normal(size=(B, env.num_actions)).astype(np.float32) * 2), -1)
+    value = torch.from_numpy(np.tanh(rng.normal(size=B)).astype(np.float32))
+    return obs, policy, value
+
+
+def _dist_pipeline_config(ckpt_dir, games: int, inference: str):
+    """A fresh 6x64 BatchNorm net (its zero heads make every evaluation
+    exactly uniform, whatever the batch), 4 moves at 32 simulations, W=16,
+    no root noise, T=0, no recycling (every move enters the ring), one
+    learner step at batch 1024."""
+    from alphazero_tpu_torch.mcts.search import MCTSConfig
+    from alphazero_tpu_torch.models.resnet import ResNetConfig
+    from alphazero_tpu_torch.selfplay.actor import SelfPlayConfig
+    from alphazero_tpu_torch.training.learner import LearnerConfig
+    from alphazero_tpu_torch.training.pipeline import PipelineConfig
+
+    return PipelineConfig(
+        board_size=15, model=ResNetConfig(),
+        selfplay=SelfPlayConfig(
+            mcts=MCTSConfig(num_simulations=32, wave_size=16, max_children=32,
+                            dirichlet_epsilon=0.0),
+            max_moves=4, temperature=0.0, final_temperature=0.0),
+        learner=LearnerConfig(scheduler="constant", warmup_steps=0),
+        iterations=1, games_per_iteration=games, train_steps_per_iteration=1,
+        train_batch_size=1024, replay_capacity=4096, min_replay_before_training=1,
+        checkpoint_dir=ckpt_dir, checkpoint_every=1, inference=inference)
+
+
+def _ring(pipe) -> dict:
+    buf = pipe.buffer
+    return {"size": buf.size, "position": buf.position, "policy": buf.policy.cpu(),
+            "value": buf.value.cpu(), "board": buf.states.board.cpu(),
+            "move_count": buf.states.move_count.cpu()}
+
+
+def _rings_equal(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor) else a[k] == b[k]
+               for k in a)
+
+
+def _compare_dist(ranked: dict, one: dict) -> dict:
+    """A learner step against one process's on the whole batch, by the CPU
+    test's tolerances: the loss (rtol 1e-5), the running statistics (rtol
+    1e-4, atol 1e-6; ``stats_excess`` <= 0 meets them), the gradients
+    element by element (rtol 1e-4, atol 1e-7: the elements outside, and
+    the norm of the difference relative to the gradient's), and the
+    parameters after the step (the elements more than 1e-6 off, where the
+    global gradient is 1e-6 or more)."""
+    def excess(a, b, rtol, atol):
+        return (a - b).abs() - (atol + rtol * b.abs())
+
+    ga = torch.cat([ranked["grads"][k].ravel() for k in one["grads"]])
+    gb = torch.cat([g.ravel() for g in one["grads"].values()])
+    pa = torch.cat([ranked["params"][k].ravel() for k in one["params"]])
+    pb = torch.cat([p.ravel() for p in one["params"].values()])
+    big = gb.abs() >= 1e-6
+    return {
+        "loss_rel_err": max(abs(a - b) / abs(b)
+                            for a, b in zip(ranked["loss"][:3], one["loss"][:3])),
+        "stats_excess": max(float(excess(ranked["stats"][k], v, 1e-4, 1e-6).max())
+                            for k, v in one["stats"].items()),
+        "grad_elements_over": int((excess(ga, gb, 1e-4, 1e-7) > 0).sum()),
+        "grad_norm_rel_err": float((ga - gb).norm() / gb.norm()),
+        "param_elements_over": int(((pa - pb).abs()[big] > 1e-6).sum()),
+        "param_max_abs_err": float((pa - pb).abs()[big].max()),
+        "elements": gb.numel(), "params_with_grad_under_1e-6": int((~big).sum()),
+    }
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """TF32 off and cuDNN's deterministic algorithms (its weight gradients
+    may otherwise add in any order), for comparisons of learner steps."""
+    flags = [(torch.backends.cuda.matmul, "allow_tf32", False),
+             (torch.backends.cudnn, "allow_tf32", False),
+             (torch.backends.cudnn, "deterministic", True),
+             (torch.backends.cudnn, "benchmark", False)]
+    keep = [getattr(m, n) for m, n, _ in flags]
+    for m, n, v in flags:
+        setattr(m, n, v)
+    try:
+        yield
+    finally:
+        for (m, n, _), v in zip(flags, keep):
+            setattr(m, n, v)
+
+
+def phase_dist_one(env, model_path) -> dict:
+    """A one-rank NCCL process group: one learner step of the flagship at
+    batch 1024 (f32, deterministic cuDNN) bit-equal to the same step with no
+    group; then one ``Pipeline(mesh=)`` iteration on the flagship's 6x64
+    BatchNorm shape with the int8 executor under the group (256 games, 4
+    moves, 32 simulations, W=16), its kernel calls held against their plain
+    versions."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from alphazero_tpu_torch.ops.gather_rows import gather_rows
+    from alphazero_tpu_torch.ops.s8_mm import s8_mm
+    from alphazero_tpu_torch.parallel import mesh as meshlib
+    from alphazero_tpu_torch.training.pipeline import Pipeline
+
+    batch = _dist_batch(env)
+    alone = _dist_learner(model_path, env, batch)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        grouped = _dist_learner(model_path, env, batch)
+        same = (alone["loss"] == grouped["loss"]
+                and all(torch.equal(alone[s][k], grouped[s][k])
+                        for s in ("grads", "params", "stats") for k in alone[s]))
+        with tempfile.TemporaryDirectory() as tmp:
+            mesh = meshlib.make_mesh()
+            pipe = Pipeline(_dist_pipeline_config(tmp, 256, "int8"), mesh=mesh)
+            gather_rows.launches = 0
+            s8_mm.launches = 0
+            with _KernelCalls() as rec:
+                entry = pipe.run_iteration(0)
+            launches = {"gather_rows": gather_rows.launches, "s8_mm": s8_mm.launches}
+            pipe.save_checkpoint(0)
+            files = sorted(os.listdir(tmp))
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    held = _check_recorded("dist_one", rec, each=False)
+    res = {"backend": backend, "mesh": mesh.shape, "learner_bit_equal": same,
+           "loss": grouped["loss"], "learner_steps_per_s": {
+               "no_group": alone["steps_per_s"], "group": grouped["steps_per_s"]},
+           "iteration": entry, "launches": launches,
+           "files": files, "signatures": len(held)}
+    log("[dist_one] " + json.dumps(res))
+    if not (same and launches["s8_mm"] > 0 and launches["gather_rows"] > 0
+            and np.isfinite(entry["loss"]) and files == ["ckpt_0.pt", "history.json"]):
+        raise AssertionError(f"[dist_one] {res}")
+    return res
+
+
+def dist_worker(rank: int, port: int, out_dir: str) -> int:
+    """One of [dist_two]'s two ranks (gloo, both on cuda:0): its half of the
+    learner batch, and one Pipeline(mesh=) iteration on its 128 lanes."""
+    from alphazero_tpu_torch.core import registry
+    from alphazero_tpu_torch.ops.gather_rows import gather_rows
+    from alphazero_tpu_torch.parallel import distributed
+    from alphazero_tpu_torch.training.pipeline import Pipeline
+
+    torch.set_num_threads(2)  # two ranks share the host's cores
+    distributed.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo", device="cuda")
+    env = registry.create_game("gomoku", 15)
+    learner = _dist_learner(os.path.join(ROOT, "models_zoo", "flagship_gomoku15"),
+                            env, _dist_batch(env),
+                            rows=slice(512 * rank, 512 * (rank + 1)))
+    pipe = Pipeline(_dist_pipeline_config(os.path.join(out_dir, "ckpt"), 256, "folded"))
+    gather_rows.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    entry = pipe.run_iteration(0)
+    torch.cuda.synchronize()
+    res = {"learner": learner, "ring": _ring(pipe), "entry": entry,
+           "iteration_s": time.perf_counter() - t0, "lanes": pipe.local_games,
+           "gather_launches": gather_rows.launches}
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_dist_two(env, model_path) -> dict:
+    """Two processes joined by gloo, both on cuda:0 (NCCL refuses two ranks
+    on one card): the learner step at batch 1024 (512 a rank) against one
+    process's on the whole batch (the loss and running statistics within
+    the CPU test's tolerances, the gradients and parameters no further off
+    than one process's step on the same rows in another order), and one
+    ``Pipeline(mesh=)`` iteration at 256 games (128 a rank, no root noise,
+    T=0, the folded net) whose ring equals one process's."""
+    import tempfile
+
+    from alphazero_tpu_torch.training.pipeline import Pipeline
+
+    # One process first, then the two ranks with the card to themselves.
+    # The same step on the batch's rows in another order: how far the
+    # order of the f32 sums alone moves it on the card.
+    batch = _dist_batch(env)
+    one = _dist_learner(model_path, env, batch)
+    perm = torch.from_numpy(np.random.RandomState(6).permutation(1024))
+    floor = _compare_dist(_dist_learner(model_path, env, batch, rows=perm,
+                                        timed_steps=0), one)
+    with tempfile.TemporaryDirectory() as tmp:
+        pipe = Pipeline(_dist_pipeline_config(os.path.join(tmp, "one"), 256, "folded"))
+        t0 = time.perf_counter()
+        entry = pipe.run_iteration(0)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        ring = _ring(pipe)
+        del pipe
+        torch.cuda.empty_cache()
+        port = _free_port()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--dist-worker", str(r), str(port), tmp],
+                                  cwd=ROOT, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        logs = []
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=600)[0])
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                raise
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"[dist_two] rank {r} failed:\n{text[-3000:]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    res = {"backend": "gloo", "learner": [_compare_dist(r["learner"], one) for r in ranks],
+           "learner_rows_permuted": floor,
+           "ring_equal_one_process": [_rings_equal(r["ring"], ring) for r in ranks],
+           "ring_size": ring["size"], "lanes_a_rank": [r["lanes"] for r in ranks],
+           "loss": {"ranks": [r["entry"]["loss"] for r in ranks], "one": entry["loss"]},
+           "iteration_s": {"ranks": [r["iteration_s"] for r in ranks], "one": one_s},
+           "learner_steps_per_s": {"ranks": [r["learner"]["steps_per_s"] for r in ranks],
+                                   "one": one["steps_per_s"]},
+           "gather_launches": [r["gather_launches"] for r in ranks]}
+    log("[dist_two] " + json.dumps(res))
+    # The loss and the running statistics meet the CPU test's tolerances.
+    # The gradients and parameters cannot on the card: one process misses
+    # them against itself with the rows reordered (cuDNN's f32 weight
+    # gradients sum 230,400 terms an element, in an order the batch's
+    # shape decides), so the ranks must come no further from one process
+    # than that reordering does, with a margin of 1.5.
+    learner_ok = all(
+        c["loss_rel_err"] <= 1e-5 and c["stats_excess"] <= 0
+        and c["grad_norm_rel_err"] <= 1.5 * floor["grad_norm_rel_err"]
+        and c["grad_elements_over"] <= 1.5 * floor["grad_elements_over"]
+        and c["param_elements_over"] <= 1.5 * floor["param_elements_over"]
+        for c in res["learner"])
+    if not (learner_ok and all(res["ring_equal_one_process"])
+            and ring["size"] > 0 and min(res["gather_launches"]) > 0):
+        raise AssertionError(f"[dist_two] {res}")
+    return res
+
+
+def phase_scripts() -> dict:
+    """The three scripts in this process, as a user runs them on the card:
+    ``regression_test.py --device cuda`` (every check ok);
+    ``benchmark.py`` at its width (B=1024, 6x64, 15x15) cut to 64
+    simulations; ``hyperopt.py --trials 2 --iterations 1`` cut to 9x9, 32
+    games, 8 simulations.  Gather launches counted; the kernel calls held
+    against their plain versions."""
+    import io
+    import tempfile
+
+    from alphazero_tpu_torch.ops.gather_rows import gather_rows
+    from alphazero_tpu_torch.ops.s8_mm import s8_mm
+    from alphazero_tpu_torch.scripts import benchmark, hyperopt, regression_test
+
+    def run(main, argv):
+        buf = io.StringIO()
+        code = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            try:
+                main(argv)
+            except SystemExit as e:
+                code = e.code
+        torch.cuda.synchronize()
+        lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+        return code, lines, time.perf_counter() - t0
+
+    res = {}
+    gather_rows.launches = 0
+    s8_mm.launches = 0
+    cwd = os.getcwd()
+    with _KernelCalls() as rec, tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)  # hyperopt's trials write checkpoints/history.json
+        code, lines, wall = run(regression_test.main, ["--device", "cuda"])
+        res["regression_test"] = {"exit": code, "wall_s": wall, "checks": lines}
+        log("[scripts] benchmark.py depth cut: 64 simulations (was 800)")
+        code, lines, wall = run(benchmark.main, ["--simulations", "64"])
+        res["benchmark"] = {"wall_s": wall, "line": lines[-1]}
+        cut = ["--trials", "2", "--iterations", "1", "--games", "32",
+               "--simulations", "8"]
+        log("[scripts] hyperopt.py depth cut: " + " ".join(cut)
+            + " (defaults 8 trials, 4 iterations, 32 games, 64 simulations)")
+        try:
+            code, lines, wall = run(hyperopt.main, cut + ["--output", "hyperopt.json"])
+        finally:
+            os.chdir(cwd)
+        res["hyperopt"] = {"wall_s": wall, "best": lines[-1],
+                           "trials": lines[:-1]}
+    res["launches"] = {"gather_rows": gather_rows.launches, "s8_mm": s8_mm.launches}
+    held = _check_recorded("scripts", rec, each=False)
+    res["signatures"] = len(held)
+    log("[scripts] " + json.dumps(res))
+    reg = res["regression_test"]
+    if not (reg["exit"] == 0 and reg["checks"][-1] == {"total": 9, "failed": 0}
+            and all(c.get("ok", True) for c in reg["checks"])):
+        raise AssertionError(f"[scripts] regression_test.py: {reg}")
+    if list(res["benchmark"]["line"]) != ["nn_inference", "env_step", "search"]:
+        raise AssertionError(f"[scripts] benchmark.py: {res['benchmark']}")
+    if not (len(res["hyperopt"]["trials"]) == 2
+            and np.isfinite(res["hyperopt"]["best"]["best"]["score"])):
+        raise AssertionError(f"[scripts] hyperopt.py: {res['hyperopt']}")
+    if res["launches"]["gather_rows"] <= 0:
+        raise AssertionError("[scripts] no gather_rows launch")
+    return res
+
+
+def phase_anchor_eval(model_path, games: int = 8, cand_sims: int = 64) -> dict:
+    """The anchor evaluation script (``scripts/anchor_eval.py``) as a user runs it: the
+    flagship (BN-folded bf16) at ``cand_sims`` simulations, W=16, against
+    each ``POOL`` anchor, ``games`` games each from 6 random opening plies,
+    the cached round-robin merged, written to a temporary ``--output``.
+    This is the ladder [arena] ran before (cut to 8 games an anchor and 64
+    simulations, printed); its gate stays: three quarters of the games
+    against uniform_mcts_16.  The kernel calls are held against their
+    plain versions."""
+    import tempfile
+
+    from alphazero_tpu_torch.ops.gather_rows import gather_rows
+    from alphazero_tpu_torch.scripts import anchor_eval
+
+    log(f"[anchor_eval] depth cut: AE_GAMES={games} (default 64), "
+        f"{cand_sims} simulations (default 800)")
+    knobs = dict(AE_GAMES=str(games), AE_WAVE="16", AE_OPENING="6")
+    os.environ.update(knobs)
+    gather_rows.launches = 0
+    try:
+        with tempfile.TemporaryDirectory() as tmp, _KernelCalls() as rec:
+            path = os.path.join(tmp, "anchor_evals.json")
+            t0 = time.perf_counter()
+            out = anchor_eval.main([model_path, str(cand_sims), "--output", path])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with open(path) as f:
+                written = json.load(f)
+    finally:
+        for k in knobs:
+            os.environ.pop(k)
+    held = _check_recorded("anchor_eval", rec, each=False)
+    res = {"record": out, "wall_s": wall, "gather_launches": gather_rows.launches,
+           "written_once": written == [out], "signatures": len(held)}
+    log("[anchor_eval] " + json.dumps(res))
+    first = out["matches"][0]
+    need = -(-3 * games // 4)
+    if not (res["written_once"] and first[1] == "uniform_mcts_16" and first[2] >= need):
+        raise AssertionError(f"[anchor_eval] the flagship took {first} against "
+                             f"uniform_mcts_16, fewer than {need} wins: {res}")
+    return res
+
+
+def phase_plugins() -> dict:
+    """A game plugin written to a temporary directory (a 9x9 Gomoku under
+    its own name), loaded with ``load_directory``, created by name and
+    searched on the card (64 lanes, 64 simulations, W=16); its kernel
+    calls held against their plain versions; the registry restored."""
+    import tempfile
+
+    from alphazero_tpu_torch import create_game
+    from alphazero_tpu_torch.core import plugins, registry
+    from alphazero_tpu_torch.mcts.search import MCTSConfig, search
+    from alphazero_tpu_torch.models.stub import make_uniform_eval_fn
+
+    saved = (dict(registry._REGISTRY), dict(registry._BY_TYPE))
+    src = ("def register(register_game):\n"
+           "    from alphazero_tpu_torch.core.types import GameType\n"
+           "    from alphazero_tpu_torch.games.gomoku import GomokuEnv\n"
+           "    register_game('smoke_gomoku9', GameType.UNKNOWN,\n"
+           "                  lambda board_size=9, **kw: GomokuEnv(board_size=board_size, **kw))\n")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            with open(os.path.join(tmp, "smoke_plugin.py"), "w") as f:
+                f.write(src)
+            loaded = plugins.load_directory(tmp)
+        env = create_game("smoke_gomoku9")
+        with _KernelCalls() as rec:
+            out = search(env, make_uniform_eval_fn(env.num_actions, value_noise=0.1),
+                         env.init(64, device="cuda"),
+                         MCTSConfig(num_simulations=64, wave_size=16),
+                         torch.Generator(device="cuda").manual_seed(0))
+        visits = out.visit_counts.sum(-1).unique().tolist()
+        kind = registry.game_type_of("smoke_gomoku9").name
+    finally:
+        registry._REGISTRY.clear()
+        registry._REGISTRY.update(saved[0])
+        registry._BY_TYPE.clear()
+        registry._BY_TYPE.update(saved[1])
+        sys.modules.pop("smoke_plugin", None)
+    held = _check_recorded("plugins", rec, each=False)
+    res = {"loaded": loaded, "game_type": kind, "root_visits": visits,
+           "signatures": len(held)}
+    log("[plugins] " + json.dumps(res))
+    if not (loaded == ["smoke_plugin"] and visits == [64] and kind == "UNKNOWN"):
+        raise AssertionError(f"[plugins] {res}")
+    return res
+
+
+def phase_slice12(env, int8_eval, convs: int, model_path) -> dict:
+    """Every phase of slice 12 in order."""
+    walls, out = {}, {}
+
+    def timed(phase, fn, /, *args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        walls[phase] = round(time.perf_counter() - t0, 1)
+        return res
+
+    out["scan_main"] = timed("scan_main", phase_scan_main, env, int8_eval, convs)
+    log("[scan_pipeline] config/gomoku_15x15.json with host_actor=false")
+    out["scan_pipeline"] = timed(
+        "scan_pipeline", phase_train_config, tag="scan_pipeline",
+        cuts={"host_actor": False, "selfplay.max_moves": 4,
+              "train_steps_per_iteration": 2})
+    out["dist_one"] = timed("dist_one", phase_dist_one, env, model_path)
+    out["dist_two"] = timed("dist_two", phase_dist_two, env, model_path)
+    out["scripts"] = timed("scripts", phase_scripts)
+    out["records"] = timed("records", phase_records, env,
+                           out["scan_main"].pop("output"))
+    out["anchor_eval"] = timed("anchor_eval", phase_anchor_eval, model_path)
+    out["plugins"] = timed("plugins", phase_plugins)
+    log("[slice12] phase wall seconds: " + json.dumps(walls))
+    out["walls"] = walls
+    return out
+
+
 def _named_tensors(tree, prefix="") -> dict:
     """The tensors of a nested dict/list tree by dotted path."""
     if isinstance(tree, dict):
@@ -2799,12 +3331,13 @@ def phase_train(env, model_path) -> dict:
             board_size=15, model=flagship.cfg,
             selfplay=SelfPlayConfig(
                 mcts=MCTSConfig(num_simulations=32, wave_size=16, max_children=32),
-                max_moves=64, recycle=True),
+                max_moves=32, recycle=True),
             learner=cfg, iterations=2, games_per_iteration=256,
             train_steps_per_iteration=8, train_batch_size=B,
             replay_capacity=100_000, min_replay_before_training=1,
             checkpoint_dir=ckpt_dir, checkpoint_every=1, inference="int8")
         mcts = pcfg.selfplay.mcts
+        log("[train] pipeline depth cut: 32 moves an iteration (was 64)")
         log("[train] pipeline depth: " + json.dumps({
             "games_per_iteration": pcfg.games_per_iteration,
             "simulations": mcts.num_simulations, "wave": mcts.wave_size,
@@ -2908,6 +3441,9 @@ def phase_train(env, model_path) -> dict:
 
 
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--dist-worker":
+        sys.path.insert(0, ROOT)
+        return dist_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2990,18 +3526,18 @@ def main() -> int:
     timed("train_config", phase_train_config, cuts={"selfplay.max_moves": 4})
     log("[variants] depth cut: 96 simulations (was 800, then 192)")
     timed("variants", phase_variants, int8_eval, convs, main_res, sims=96)
-    # Cut with the chess phases, to hold the script near 700 s: 8 games an
-    # anchor (was 16), the gate still three quarters of them; with the
-    # slice-11 phases the flagship at 64 simulations (was 128).
-    log("[arena] ladder depth cut: 8 games an anchor (was 16), the flagship "
-        "at 64 simulations (was 128)")
-    timed("arena", phase_arena, model_path, games=8, cand_sims=64)
+    timed("arena", phase_arena)
     go = phase_go(convs)
     walls.update(go["walls"])
     chess = phase_chess()
     walls.update(chess["walls"])
     slice11 = phase_slice11()
     walls.update(slice11["walls"])
+    # The anchored ladder (8 games an anchor, was 16; the flagship at 64
+    # simulations, was 128: cuts made with the chess and slice-11 phases)
+    # runs through the anchor evaluation script in [anchor_eval].
+    slice12 = phase_slice12(env, int8_eval, convs, model_path)
+    walls.update(slice12["walls"])
 
     head = rows[0]  # child stats: the most rows of any gather per level
     kernels = [{
