@@ -125,3 +125,31 @@ def plot_board_heatmap(board: np.ndarray, weights: np.ndarray,
     ax.set_title(title)
     fig.colorbar(im)
     return _save(plt, fig, out_path)
+
+
+def plot_anchored_curve(points: Sequence[Tuple[int, float]],
+                        anchor_ratings: Dict[str, float], out_path: str, *,
+                        label: str, xlabel: str, ylabel: str, title: str) -> str:
+    """Anchored Bradley-Terry ratings of a run's nets over training
+    iterations (``points``: (iteration, rating), in order), with each
+    anchor's rating as a dashed line, labelled at the last iteration: the
+    figure of ``tools/merge_flagship_legs.py``, which the flagship resume
+    (``tools/train_flagship2.py``) draws too."""
+    plt = _plt()
+    xs = [x for x, _ in points]
+    ys = [y for _, y in points]
+    fig, ax = plt.subplots(figsize=(7, 4.2))
+    ax.plot(xs, ys, "o-", color="#4c72b0", label=label)
+    for name, r in anchor_ratings.items():
+        ax.axhline(r, ls="--", lw=0.8, color="#999")
+        ax.annotate(f"{name} {r:.0f}", (xs[-1], r), fontsize=7, va="bottom",
+                    ha="right", color="#666")
+    ax.set_xlabel(xlabel)
+    ax.set_ylabel(ylabel)
+    ax.set_title(title)
+    ax.legend(loc="lower right", fontsize=8)
+    fig.tight_layout()
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    fig.savefig(out_path, dpi=130)
+    plt.close(fig)
+    return out_path

@@ -189,7 +189,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      12); [plugins] a plugin game (load_directory of a temporary
      *_plugin.py) searched on the card; every path's kernel calls held
      against their plain versions;
- 16. summary: one JSON line of kernels, then the final status line.
+ 16. the repo's tools and examples (slice 13, [tools]): tools/train_zoo_go9.py's
+     recipe cut to 1 iteration x 96 games x 32 simulations and a 4-game
+     ladder against uniform_mcts_16; tools/ab_arena.py int8 and reuse on
+     the flagship (32 games, 64 simulations, W=16) under the routing check;
+     one piped game of examples/play_go.py; the records' keys against the
+     JAX records in docs/, the kernel calls against their plain versions;
+ 17. summary: one JSON line of kernels, then the final status line.
+
+    python3 chip_smoke.py --ab MODE   # one A/B of tools/ab_arena.py alone
+
+runs the device and build phases, then one A/B at the ``AB_*`` knobs'
+size under the routing check, with every kernel call held against its
+plain version (``ab_check``): MODE ``int8`` or ``reuse`` is the tool's
+own; ``null`` and ``sides`` are controls of the int8 A/B.
 
 gather_rows times are taken with warm L2 (the search re-reads the same
 arenas within a wave); its ``bound_ms`` counts the bytes the call must move
@@ -3069,6 +3082,278 @@ def phase_slice12(env, int8_eval, convs: int, model_path) -> dict:
     return out
 
 
+def phase_tools(model_path) -> dict:
+    """The repo's tools (``alphazero_tpu_torch/tools/``, ``examples/``) as
+    a user runs them, cut in depth (each cut printed): the go9 recipe at 1
+    iteration x 96 games x 32 sims and a 4-game ladder against
+    uniform_mcts_16 at 32 sims; ``ab_arena int8`` and ``ab_arena reuse``
+    with the flagship, 32 games, 64 sims, W=16, under the routing check
+    (each side evaluates or searches exactly the lanes it moves); one piped
+    game of ``play_go`` at 9x9, 16 sims.  Gates: every run returns, each
+    record has the JAX record's keys (``docs/``), the A/B's rows add up to
+    its games, no routing fault; every kernel call held against its plain
+    version."""
+    import io
+    import tempfile
+
+    from alphazero_tpu_torch.core import registry
+    from alphazero_tpu_torch.examples import play_go
+    from alphazero_tpu_torch.ops.gather_rows import gather_rows
+    from alphazero_tpu_torch.ops.s8_mm import s8_mm
+    from alphazero_tpu_torch.tools import ab_arena, train_zoo_go9
+
+    def keys_of(name):
+        with open(os.path.join(ROOT, "docs", name)) as f:
+            doc = json.load(f)
+        return doc[-1] if isinstance(doc, list) else doc
+
+    def launches():
+        out = {"gather_rows": gather_rows.launches, "s8_mm": s8_mm.launches}
+        gather_rows.launches = s8_mm.launches = 0
+        return out
+
+    go9_knobs = dict(G9_ITERS="1", G9_GAMES="96", G9_SIMS="32", G9_EVAL_GAMES="4",
+                     G9_EVAL_SIMS="32")
+    ab_knobs = dict(AB_GAMES="32", AB_SIMS="64", AB_WAVE="16",
+                    AB_MODEL=model_path)
+    log("[tools] depth cut: train_zoo_go9 " + json.dumps(go9_knobs)
+        + " --ladder uniform_mcts_16 (recipe 16 x 96 x 192, 48 games at 128 "
+        "sims against 3 anchors); ab_arena " + json.dumps(ab_knobs)
+        + " (defaults 256 games, 200 sims)")
+    res, walls = {}, {}
+    env15 = registry.create_game("gomoku", 15)
+    launches()
+    with tempfile.TemporaryDirectory() as tmp, _KernelCalls() as rec:
+        os.environ.update(go9_knobs)
+        t0 = time.perf_counter()
+        try:
+            go9 = train_zoo_go9.main(["--output", os.path.join(tmp, "go9.json"),
+                                      "--ladder", "uniform_mcts_16"])
+        finally:
+            for k in go9_knobs:
+                os.environ.pop(k)
+        walls["go9"] = time.perf_counter() - t0
+        res["go9"] = {"matches": go9["matches"], "bt_ratings": go9["bt_ratings"],
+                      "iteration": go9["history"][0], "launches": launches(),
+                      "keys": sorted(go9) == sorted(keys_of("train_zoo_go9.json"))
+                      and sorted(go9["config"]) == sorted(keys_of("train_zoo_go9.json")["config"])}
+        os.environ.update(ab_knobs)
+        try:
+            for mode in ("int8", "reuse"):
+                t0 = time.perf_counter()
+                with RoutingCheck(env15) as chk:
+                    ab = ab_arena.main([mode, "--output", os.path.join(tmp, "ab.json")])
+                walls[f"ab_{mode}"] = time.perf_counter() - t0
+                res[f"ab_{mode}"] = {
+                    "record": ab, "rows": chk.rows, "calls": chk.calls,
+                    "faults": chk.faults[:4], "launches": launches(),
+                    "keys": sorted(ab) == sorted(keys_of("ab_results.json"))}
+        finally:
+            for k in ab_knobs:
+                os.environ.pop(k)
+        t0 = time.perf_counter()
+        buf, stdin = io.StringIO(), sys.stdin
+        sys.stdin = io.StringIO("new\nE5\nD4\nquit\n")
+        try:
+            with contextlib.redirect_stdout(buf):
+                code = play_go.main(["--board-size", "9", "--simulations", "16"])
+        finally:
+            sys.stdin = stdin
+        walls["play_go"] = time.perf_counter() - t0
+        text = buf.getvalue()
+        res["play_go"] = {"exit": code, "engine_moves": text.count("engine:"),
+                          "result": text.strip().splitlines()[-1], "launches": launches()}
+    held = _check_recorded("tools", rec, each=False)
+    res["signatures"] = len(held)
+    res["walls"] = {k: round(v, 1) for k, v in walls.items()}
+    log("[tools] " + json.dumps(res))
+    bad = [k for k in ("go9", "ab_int8", "ab_reuse") if not res[k]["keys"]]
+    for mode in ("int8", "reuse"):
+        r = res[f"ab_{mode}"]
+        rows = r["record"]["wins_a"] + r["record"]["wins_b"] + r["record"]["draws"]
+        if rows != 32 or r["record"]["games"] != 32:
+            bad.append(f"ab_{mode}: {rows} games")
+        # One batched search splits every wave in halves; searches a side
+        # need not come out even (a half may end on an odd ply).
+        even = mode == "reuse" or r["rows"]["a"] == r["rows"]["b"]
+        if r["faults"] or not even or not (r["rows"]["a"] and r["rows"]["b"]):
+            bad.append(f"ab_{mode} routing: {r['rows']} {r['faults']}")
+    for k in ("go9", "ab_int8"):
+        if res[k]["launches"]["s8_mm"] <= 0 or res[k]["launches"]["gather_rows"] <= 0:
+            bad.append(f"{k}: launches {res[k]['launches']}")
+    if not (res["play_go"]["exit"] == 0 and res["play_go"]["engine_moves"] == 2):
+        bad.append(f"play_go: {res['play_go']}")
+    if sum(res["go9"]["matches"][0][2:]) != 4:
+        bad.append(f"go9 ladder: {res['go9']['matches']}")
+    if bad:
+        raise AssertionError(f"[tools] {bad}")
+    return res
+
+
+class RoutingCheck:
+    """While active, checks every evaluation and search of an A/B match
+    against the lanes each side moves, and counts what each side did.
+
+    One batched search (``play_match``, ``play_match_host``): of a wave's
+    rows, laid out lane by lane, A must get exactly those of the lanes
+    where it is to move at the root (the first ``half`` lanes with black to
+    move, the rest with white), and B the others; ``rows`` counts each
+    side's evaluated rows.  A search a side (``play_match_sides``; the
+    first search built is A's): every unfinished root a side searches must
+    have it to move; ``rows`` counts each side's searched lanes.
+    ``faults`` lists the calls that broke the rule."""
+
+    def __init__(self, env):
+        self.env = env
+        self.rows = {"a": 0, "b": 0}
+        self.calls = 0
+        self.faults = []
+
+    def __enter__(self):
+        from alphazero_tpu_torch.eval import arena
+
+        self._arena = arena
+        self._saved = {n: getattr(arena, n) for n in (
+            "make_mover_eval_fn", "HostReuseSearch", "make_host_search")}
+        self._built = 0
+        arena.make_mover_eval_fn = self._mover
+        arena.HostReuseSearch = lambda *a, **kw: self._side(
+            self._saved["HostReuseSearch"](*a, **kw))
+        arena.make_host_search = lambda *a, **kw: self._side(
+            self._saved["make_host_search"](*a, **kw))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(self._arena, n, fn)
+
+    def _mover(self, eval_a, eval_b, half, black_to_move, num_games):
+        full = {}
+
+        def side(name, fn):
+            def f(obs, to_play):
+                whole = full["obs"]
+                per_lane = whole.shape[0] // num_games
+                lo, hi = (0, half) if (name == "a") == black_to_move else (half, num_games)
+                row = (obs.data_ptr() - whole.data_ptr()) // (
+                    whole.stride(0) * whole.element_size())
+                if row != lo * per_lane or obs.shape[0] != (hi - lo) * per_lane:
+                    self.faults.append({"side": name, "first_row": row,
+                                        "rows": obs.shape[0], "lanes": [lo, hi],
+                                        "rows_a_lane": per_lane})
+                self.rows[name] += obs.shape[0]
+                return fn(obs, to_play)
+            return f
+
+        inner = self._saved["make_mover_eval_fn"](
+            side("a", eval_a), side("b", eval_b), half, black_to_move, num_games)
+
+        def eval_fn(obs, to_play):
+            full["obs"] = obs
+            self.calls += 1
+            return inner(obs, to_play)
+
+        return eval_fn
+
+    def _side(self, search):
+        name = "ab"[self._built % 2]
+        self._built += 1
+        check = self
+
+        class Side:
+            halves = -1
+
+            def reset(self):
+                self.halves += 1
+                if hasattr(search, "reset"):
+                    search.reset()
+
+            def advance(self, *args):
+                if hasattr(search, "advance"):
+                    search.advance(*args)
+
+            def __call__(self, states, generator):
+                # A is black in the first half, white in the second.
+                colour = int((name == "a") == (self.halves % 2 == 1))
+                live = ~check.env.terminal_flag(states)
+                movers = check.env.to_play(states)[live]
+                if bool((movers != colour).any()):
+                    check.faults.append({"side": name, "half": self.halves,
+                                         "to_play": movers.unique().tolist()})
+                check.rows[name] += live.shape[0]
+                check.calls += 1
+                return search(states, generator)
+
+        return Side()
+
+
+def ab_control(mode: str, device) -> dict:
+    """A control of the int8 A/B at its ``AB_*`` knobs, built from
+    ``tools/ab_arena.py``'s parts, its record in that tool's keys:
+    ``null`` plays the folded bf16 net against itself through the same
+    batched match (``host_match``: one search, each lane's rows to its
+    mover's net), which should score about 0.5; ``sides`` plays the int8
+    executor against the folded net with each side its own search
+    (``play_match_sides``), so no wave is split between two nets."""
+    from alphazero_tpu_torch.eval.arena import play_match_sides
+    from alphazero_tpu_torch.mcts.search import MCTSConfig
+    from alphazero_tpu_torch.models.resnet import make_inference_eval_fn
+    from alphazero_tpu_torch.tools import _common, ab_arena
+
+    games = int(os.environ.get("AB_GAMES", "256"))
+    sims = int(os.environ.get("AB_SIMS", "200"))
+    seed = int(os.environ.get("AB_SEED", "0"))
+    env, model = ab_arena.load_net(device)
+    t0 = time.time()
+    bf16 = make_inference_eval_fn(model)
+    if mode == "null":
+        a_name = "bf16_folded"
+        res = ab_arena.host_match(env, bf16, bf16, games, sims, seed, device)
+    else:
+        int8, a_name = ab_arena.int8_side(env, model, device)
+        mcts = MCTSConfig(num_simulations=sims, dirichlet_epsilon=0.0,
+                          wave_size=ab_arena.wave())
+        res = play_match_sides(env, (int8, mcts), (bf16, mcts),
+                               _common.generator(device, seed), games, max_moves=225,
+                               opening_random_moves=ab_arena.opening(), device=device)
+    rec = {"a": a_name, "b": "bf16_folded", "wins_a": int(res.wins_a),
+           "wins_b": int(res.wins_b), "draws": int(res.draws)}
+    return ab_arena.finish(rec, mode, sims, time.time() - t0)
+
+
+def ab_check(mode: str) -> dict:
+    """One A/B on the card (``--ab MODE``): ``int8`` and ``reuse`` through
+    ``ab_arena.main`` (its record appended to the tool's default
+    ``--output``), ``null`` and ``sides`` through ``ab_control``; under
+    ``RoutingCheck``, every kernel call recorded.  Fails on a routing
+    fault, on rows that do not add up to ``AB_GAMES``, or on a kernel call
+    that disagrees with its plain version."""
+    from alphazero_tpu_torch.core import registry
+    from alphazero_tpu_torch.ops.gather_rows import gather_rows
+    from alphazero_tpu_torch.ops.s8_mm import s8_mm
+    from alphazero_tpu_torch.tools import ab_arena
+
+    if mode not in ("int8", "reuse", "null", "sides"):
+        raise ValueError(f"--ab {mode}: not int8, reuse, null or sides")
+    env = registry.create_game("gomoku", 15)
+    gather_rows.launches = s8_mm.launches = 0
+    with _KernelCalls() as rec, RoutingCheck(env) as chk:
+        if mode in ("int8", "reuse"):
+            out = ab_arena.main([mode])
+        else:
+            out = ab_control(mode, torch.device("cuda"))
+    res = {"rows": chk.rows, "calls": chk.calls, "faults": chk.faults[:4],
+           "launches": {"gather_rows": gather_rows.launches, "s8_mm": s8_mm.launches}}
+    log(f"[ab_{mode}] routing " + json.dumps(res))
+    held = _check_recorded(f"ab_{mode}", rec, each=False)
+    games = out["wins_a"] + out["wins_b"] + out["draws"]
+    if chk.faults or not (chk.rows["a"] and chk.rows["b"]) or games != int(
+            os.environ.get("AB_GAMES", "256")):
+        raise AssertionError(f"[ab_{mode}] {games} games, routing {res}")
+    res.update(record=out, signatures=len(held))
+    return res
+
+
 def _named_tensors(tree, prefix="") -> dict:
     """The tensors of a nested dict/list tree by dotted path."""
     if isinstance(tree, dict):
@@ -3448,6 +3733,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if len(sys.argv) > 2 and sys.argv[1] == "--ab":
+        phase_device()
+        phase_build()
+        ab_check(sys.argv[2])
+        return 0
     from alphazero_tpu_torch.core import registry
 
     t_start = time.perf_counter()
@@ -3538,6 +3828,7 @@ def main() -> int:
     # runs through the anchor evaluation script in [anchor_eval].
     slice12 = phase_slice12(env, int8_eval, convs, model_path)
     walls.update(slice12["walls"])
+    timed("tools", phase_tools, model_path)
 
     head = rows[0]  # child stats: the most rows of any gather per level
     kernels = [{

@@ -36,6 +36,13 @@ def test_scan_covers_the_package():
     assert len(FILES) > 10 and (ROOT / "chip_smoke.py").exists()
 
 
+@pytest.mark.parametrize("sub", ["tools", "examples"])
+def test_scan_covers_tools_and_examples(sub):
+    """The tools and examples subpackages are scanned, every module."""
+    mods = sorted((ROOT / "alphazero_tpu_torch" / sub).glob("*.py"))
+    assert len(mods) >= 4 and set(mods) <= set(FILES)
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_imports(path):
     bad = [n for n in _imports(path) if _forbidden(n)]
