@@ -32,6 +32,11 @@ PLAYER1 = 0
 PLAYER2 = 1
 
 
+def to_reference_player(p: torch.Tensor) -> torch.Tensor:
+    """0/1 player index -> the reference's 1/2 convention."""
+    return p + 1
+
+
 def result_from_winner(winner: torch.Tensor, terminal: torch.Tensor) -> torch.Tensor:
     """Map (winner in {-1 none, 0 p1, 1 p2}, terminal) to GameResult codes."""
     res = torch.full_like(winner, int(GameResult.DRAW), dtype=torch.int32)

@@ -75,6 +75,36 @@ class ZobristTable:
     def feature(self, device) -> torch.Tensor:  # int64 [F, C]
         return self._tables(device)[2]
 
+    def piece_key(self, piece, pos) -> torch.Tensor:
+        """The key of ``piece`` on ``pos`` (ints or tensors): int64."""
+        return _lookup(self.piece, piece, pos)
+
+    def player_key(self, player) -> torch.Tensor:
+        return _lookup(self.player, player)
+
+    def feature_key(self, feature: int, value) -> torch.Tensor:
+        return _lookup(self.feature, feature, value)
+
+
+def _lookup(table, *idx) -> torch.Tensor:
+    """``table(device)[idx]`` on the device of the first tensor index (the
+    CPU if none is a tensor)."""
+    dev = next((i.device for i in idx if isinstance(i, torch.Tensor)), torch.device("cpu"))
+    return table(dev)[tuple(torch.as_tensor(i, device=dev).long() for i in idx)]
+
+
+def empty_hash(device="cpu") -> torch.Tensor:
+    """The hash of an empty position: the int64 key 0 (JAX's pair [0, 0])."""
+    return torch.zeros((), dtype=torch.int64, device=device)
+
+
+def hxor(*keys: torch.Tensor) -> torch.Tensor:
+    """XOR-combine int64 keys."""
+    out = keys[0]
+    for k in keys[1:]:
+        out = out ^ k
+    return out
+
 
 def xor_reduce(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Bitwise-xor reduction along ``dim`` by pairwise halving."""

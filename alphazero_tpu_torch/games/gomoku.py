@@ -323,6 +323,10 @@ class GomokuEnv:
             forbidden = (overline | double_four | (n_threes >= 2)) & empty
         return forbidden, five
 
+    def observation_basic(self, state: GomokuState) -> torch.Tensor:
+        """The basic planes (me, opp, black to move): bf16 [B, 3, n, n]."""
+        return self.observation(state)[:, :3]
+
     def observation(self, state: GomokuState) -> torch.Tensor:
         """bf16 [B, 11, n, n]: me, opp, black-to-move, 3x previous black
         moves one-hot, 3x previous white moves one-hot, 2x CoordConv."""

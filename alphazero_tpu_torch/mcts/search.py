@@ -45,6 +45,7 @@ from alphazero_tpu_torch.ops.gather_rows import gather_rows, gather_rows_many
 EvalFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
 UNVISITED = -1
+ROOT = 0  # every tree's root is node 0 of its lane's arena
 
 
 @dataclasses.dataclass(frozen=True)

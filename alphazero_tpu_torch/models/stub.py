@@ -10,6 +10,15 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
+def uniform_eval_fn(obs: torch.Tensor, to_play=None):
+    """(obs [B, C, H, W]) -> zero logits over H*W actions and zero values;
+    for another action count use ``make_uniform_eval_fn``."""
+    B = obs.shape[0]
+    A = obs.shape[-1] * obs.shape[-2]
+    return (torch.zeros((B, A), dtype=torch.float32, device=obs.device),
+            torch.zeros((B,), dtype=torch.float32, device=obs.device))
+
+
 def make_uniform_eval_fn(num_actions: int, value_noise: float = 0.0):
     """With ``value_noise > 0`` the value is ``value_noise * sin(12.9898 *
     sum(0.12345 * obs))`` rounded as XLA computes the JAX stub on a bf16

@@ -190,19 +190,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      *_plugin.py) searched on the card; every path's kernel calls held
      against their plain versions;
  16. the repo's tools and examples (slice 13, [tools]): tools/train_zoo_go9.py's
-     recipe cut to 1 iteration x 96 games x 32 simulations and a 4-game
+     recipe cut to 1 iteration x 96 games x 16 simulations and a 4-game
      ladder against uniform_mcts_16; tools/ab_arena.py int8 and reuse on
      the flagship (32 games, 64 simulations, W=16) under the routing check;
-     one piped game of examples/play_go.py; the records' keys against the
-     JAX records in docs/, the kernel calls against their plain versions;
+     one piped game of examples/play_go.py; tools/train_flagship.py cut to
+     1 iteration x 16 games x 32 simulations with folded and with int8
+     actors (slice 14); the records' keys against the JAX records in docs/,
+     no s8_mm launch in the folded recipe, the kernel calls against their
+     plain versions;
  17. summary: one JSON line of kernels, then the final status line.
 
     python3 chip_smoke.py --ab MODE   # one A/B of tools/ab_arena.py alone
+    python3 chip_smoke.py --recipe flagship-folded|flagship-int8
 
 runs the device and build phases, then one A/B at the ``AB_*`` knobs'
 size under the routing check, with every kernel call held against its
 plain version (``ab_check``): MODE ``int8`` or ``reuse`` is the tool's
-own; ``null`` and ``sides`` are controls of the int8 A/B.
+own; ``null`` and ``sides`` are controls of the int8 A/B.  ``--recipe``
+trains tools/train_flagship.py's recipe from scratch at its ``FLAG_*``
+knobs (defaults: JAX's record, 16 iterations x 256 games x 800
+simulations) with only the actors' inference set (``folded``, as JAX's
+record was made, or the recipe's own int8), rates the bundle as JAX rated
+``flagship_gomoku15@800`` and prints both beside JAX's (``recipe_check``);
+its record, bundle and summary go under ``build/recipe/<MODE>/``.
 
 gather_rows times are taken with warm L2 (the search re-reads the same
 arenas within a wave); its ``bound_ms`` counts the bytes the call must move
@@ -221,6 +231,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import socket
@@ -3085,14 +3096,18 @@ def phase_slice12(env, int8_eval, convs: int, model_path) -> dict:
 def phase_tools(model_path) -> dict:
     """The repo's tools (``alphazero_tpu_torch/tools/``, ``examples/``) as
     a user runs them, cut in depth (each cut printed): the go9 recipe at 1
-    iteration x 96 games x 32 sims and a 4-game ladder against
-    uniform_mcts_16 at 32 sims; ``ab_arena int8`` and ``ab_arena reuse``
+    iteration x 96 games x 16 sims and a 4-game ladder against
+    uniform_mcts_16 at 16 sims; ``ab_arena int8`` and ``ab_arena reuse``
     with the flagship, 32 games, 64 sims, W=16, under the routing check
-    (each side evaluates or searches exactly the lanes it moves); one piped
-    game of ``play_go`` at 9x9, 16 sims.  Gates: every run returns, each
-    record has the JAX record's keys (``docs/``), the A/B's rows add up to
-    its games, no routing fault; every kernel call held against its plain
-    version."""
+    (each side evaluates or searches exactly the lanes it moves); the
+    flagship recipe (``train_flagship``) at 1 iteration x 16 games x 32
+    sims with folded and with int8 actors, its arena 2 games at 2 sims
+    (``flagship_run``, no rating);
+    one piped game of ``play_go`` at 9x9, 16 sims.  Gates: every run
+    returns, each record has the JAX record's keys (``docs/``), the A/B's
+    rows add up to its games, no routing fault, no ``s8_mm`` launch or int8
+    evaluation in the folded recipe and ``s8_mm`` launches in the int8 one;
+    every kernel call held against its plain version."""
     import io
     import tempfile
 
@@ -3103,8 +3118,7 @@ def phase_tools(model_path) -> dict:
     from alphazero_tpu_torch.tools import ab_arena, train_zoo_go9
 
     def keys_of(name):
-        with open(os.path.join(ROOT, "docs", name)) as f:
-            doc = json.load(f)
+        doc = _jax_doc(name)
         return doc[-1] if isinstance(doc, list) else doc
 
     def launches():
@@ -3112,14 +3126,23 @@ def phase_tools(model_path) -> dict:
         gather_rows.launches = s8_mm.launches = 0
         return out
 
-    go9_knobs = dict(G9_ITERS="1", G9_GAMES="96", G9_SIMS="32", G9_EVAL_GAMES="4",
-                     G9_EVAL_SIMS="32")
+    # Cut with the flagship recipe (slice 14), to hold the call near 650 s:
+    # the go9 recipe's self-play and ladder at 16 simulations (were 32).
+    go9_knobs = dict(G9_ITERS="1", G9_GAMES="96", G9_SIMS="16", G9_EVAL_GAMES="4",
+                     G9_EVAL_SIMS="16")
     ab_knobs = dict(AB_GAMES="32", AB_SIMS="64", AB_WAVE="16",
                     AB_MODEL=model_path)
+    # The recipe's arena plays all 225 plies at W=1: 2 games at 2 sims keep
+    # it to 450 searches.
+    flag_knobs = dict(FLAG_ITERS="1", FLAG_GAMES="16", FLAG_SIMS="32",
+                      FLAG_EVAL_GAMES="2", FLAG_EVAL_SIMS="2")
     log("[tools] depth cut: train_zoo_go9 " + json.dumps(go9_knobs)
         + " --ladder uniform_mcts_16 (recipe 16 x 96 x 192, 48 games at 128 "
-        "sims against 3 anchors); ab_arena " + json.dumps(ab_knobs)
-        + " (defaults 256 games, 200 sims)")
+        "sims against 3 anchors; 32 sims until slice 14); ab_arena " + json.dumps(ab_knobs)
+        + " (defaults 256 games, 200 sims); train_flagship folded and int8 "
+        + json.dumps(flag_knobs) + " (recipe 16 x 256 x 800, arena 128 games "
+        "at 100 sims; no anchor rating; 16 games leave the replay below the "
+        "learner's 4,096, so no learner step)")
     res, walls = {}, {}
     env15 = registry.create_game("gomoku", 15)
     launches()
@@ -3137,6 +3160,27 @@ def phase_tools(model_path) -> dict:
                       "iteration": go9["history"][0], "launches": launches(),
                       "keys": sorted(go9) == sorted(keys_of("train_zoo_go9.json"))
                       and sorted(go9["config"]) == sorted(keys_of("train_zoo_go9.json")["config"])}
+        os.environ.update(flag_knobs)
+        try:
+            for mode, inference in RECIPE_MODES.items():
+                t0 = time.perf_counter()
+                run = flagship_run(inference, os.path.join(tmp, mode), torch.device("cuda"),
+                                   rate_games=0)
+                walls[mode] = time.perf_counter() - t0
+                run.pop("kernel_calls")  # the phase's recorder holds them too
+                rec_f, ref = run["record"], keys_of("train_flagship_gomoku15.json")
+                res[mode] = {
+                    "iteration": rec_f["history"][0], "arena_series": rec_f["arena_series"],
+                    "launches": run["launches"],
+                    "faults": _launch_faults(run["inference"], run["launches"]["iterations"],
+                                             on_card=True),
+                    "keys": sorted(rec_f) == sorted(ref)
+                    and sorted(rec_f["config"]) == sorted(ref["config"])
+                    and set(ref["history"][0]) - LEARNER_KEYS <= set(rec_f["history"][0])}
+        finally:
+            for k in flag_knobs:
+                os.environ.pop(k)
+        launches()
         os.environ.update(ab_knobs)
         try:
             for mode in ("int8", "reuse"):
@@ -3167,7 +3211,8 @@ def phase_tools(model_path) -> dict:
     res["signatures"] = len(held)
     res["walls"] = {k: round(v, 1) for k, v in walls.items()}
     log("[tools] " + json.dumps(res))
-    bad = [k for k in ("go9", "ab_int8", "ab_reuse") if not res[k]["keys"]]
+    bad = [k for k in ("go9", "ab_int8", "ab_reuse", *RECIPE_MODES) if not res[k]["keys"]]
+    bad += [f for mode in RECIPE_MODES for f in res[mode]["faults"]]
     for mode in ("int8", "reuse"):
         r = res[f"ab_{mode}"]
         rows = r["record"]["wins_a"] + r["record"]["wins_b"] + r["record"]["draws"]
@@ -3319,6 +3364,264 @@ def ab_control(mode: str, device) -> dict:
     rec = {"a": a_name, "b": "bf16_folded", "wins_a": int(res.wins_a),
            "wins_b": int(res.wins_b), "draws": int(res.draws)}
     return ab_arena.finish(rec, mode, sims, time.time() - t0)
+
+
+# --recipe MODE -> the actor's inference for tools/train_flagship.py's recipe
+# (None: the recipe as the tool builds it, today's production int8).
+RECIPE_MODES = {"flagship-folded": "folded", "flagship-int8": None}
+LEARNER_KEYS = {"loss", "policy_loss", "value_loss", "grad_norm"}
+
+
+def _jax_doc(name):
+    with open(os.path.join(ROOT, "docs", name)) as f:
+        return json.load(f)
+
+
+def bt_band(rec: dict) -> list:
+    """``[lo, hi]`` of an anchor evaluation's Bradley-Terry rating: the
+    rating -+ 2 standard errors from the Fisher information of the
+    candidate's own games, the anchors held at their fitted ratings (the
+    cached round-robin pins them with many more games; the fit's one
+    virtual prior game is left out)."""
+    c = math.log(10.0) / 400.0
+    r = rec["bt_rating"]
+    info = 0.0
+    for _, anchor, w, l, d in rec["matches"]:
+        p = 1.0 / (1.0 + 10.0 ** ((rec["anchor_ratings"][anchor] - r) / 400.0))
+        info += (w + l + d) * p * (1.0 - p) * c * c
+    se = 1.0 / math.sqrt(info) if info > 0 else float("inf")
+    return [round(r - 2 * se, 1), round(r + 2 * se, 1)]
+
+
+def flagship_run(inference, out_dir: str, device, rate_games: int = 64,
+                 rate_sims: int = 800) -> dict:
+    """``tools/train_flagship.py``'s ``main`` at its ``FLAG_*`` knobs, with
+    only ``PipelineConfig.inference`` replaced (``inference`` None: the
+    tool's recipe untouched), writing its record and bundle under
+    ``out_dir``; then, unless ``rate_games`` is 0, ``scripts/anchor_eval.py``
+    on the final bundle at ``rate_sims`` simulations, ``rate_games`` games an
+    anchor, W=16, 6 random opening moves (JAX's ``flagship_gomoku15@800``
+    settings), the committed round-robin read only.  Counts, each iteration
+    and in the rating, the ``s8_mm`` and ``gather_rows`` launches, the int8
+    executor's builds and evaluations, and records every kernel call
+    (``_KernelCalls``); times the recipe's own arena evaluations."""
+    from alphazero_tpu_torch.eval import arena
+    from alphazero_tpu_torch.models import quant
+    from alphazero_tpu_torch.ops.gather_rows import gather_rows
+    from alphazero_tpu_torch.ops.s8_mm import s8_mm
+    from alphazero_tpu_torch.scripts import anchor_eval
+    from alphazero_tpu_torch.tools import train_flagship
+    from alphazero_tpu_torch.training import pipeline
+
+    counts = {"int8_builds": 0, "int8_evals": 0}
+    configs, per_iter, eval_walls = [], [], []
+    outside = {}  # launches between iterations: the recipe's arena evaluations
+
+    def launches():
+        out = {"gather_rows": gather_rows.launches, "s8_mm": s8_mm.launches,
+               **counts}
+        gather_rows.launches = s8_mm.launches = 0
+        counts.update(int8_builds=0, int8_evals=0)
+        return out
+
+    def counted(key, name):
+        def f(*a, **kw):
+            counts[key] += 1
+            return orig[name](*a, **kw)
+        return f
+
+    def recipe(k, ckpt):
+        cfg = orig["recipe"](k, ckpt)
+        if inference is not None:
+            cfg = dataclasses.replace(cfg, inference=inference)
+        configs.append(cfg)
+        return cfg
+
+    def add(acc, n):
+        for key, v in n.items():
+            acc[key] = acc.get(key, 0) + v
+
+    def run_iteration(self, it):
+        add(outside, launches())
+        entry = orig["run_iteration"](self, it)
+        per_iter.append(launches())
+        return entry
+
+    def play_match(*a, **kw):
+        t0 = time.perf_counter()
+        res = orig["play_match"](*a, **kw)
+        eval_walls.append(time.perf_counter() - t0)
+        return res
+
+    patches = {(train_flagship, "recipe"): recipe,
+               (pipeline.Pipeline, "run_iteration"): run_iteration,
+               (arena, "play_match"): play_match,
+               (quant, "make_production_eval_params"): counted(
+                   "int8_builds", "make_production_eval_params"),
+               (quant, "_chunked_int8_eval"): counted("int8_evals", "_chunked_int8_eval")}
+    orig = {name: getattr(obj, name) for obj, name in patches}
+    for (obj, name), fn in patches.items():
+        setattr(obj, name, fn)
+    out = os.path.join(out_dir, "train_flagship_gomoku15.json")
+    bundle = os.path.join(out_dir, "flagship_gomoku15")
+    os.environ["FLAG_MODEL_OUT"] = bundle
+    try:
+        with _KernelCalls() as rec:
+            t0 = time.perf_counter()
+            payload = train_flagship.main(["--device", str(device), "--output", out])
+            recipe_wall = time.perf_counter() - t0
+            add(outside, launches())
+            rating = None
+            if rate_games:
+                knobs = dict(AE_GAMES=str(rate_games), AE_WAVE="16", AE_OPENING="6")
+                os.environ.update(knobs)
+                try:
+                    t0 = time.perf_counter()
+                    rating = anchor_eval.main([bundle, str(rate_sims), "--output",
+                                               os.path.join(out_dir, "anchor_evals.json"),
+                                               "--device", str(device)])
+                    rating_wall = time.perf_counter() - t0
+                finally:
+                    for k in knobs:
+                        os.environ.pop(k)
+            rated = launches()
+    finally:
+        os.environ.pop("FLAG_MODEL_OUT")
+        for obj, name in patches:
+            setattr(obj, name, orig[name])
+    hist = payload["history"]
+    res = {
+        "inference": configs[0].inference, "iterations": len(hist),
+        "record": payload, "config": configs[0],
+        "launches": {"iterations": per_iter, "recipe_evals": outside, "rating": rated},
+        "walls": {"recipe": recipe_wall,
+                  "actor": sum(h["actor_s"] for h in hist),
+                  "learner": sum(h["train_s"] for h in hist),
+                  "recipe_evals": sum(eval_walls)},
+        "kernel_calls": rec,
+    }
+    if rating is not None:
+        res["rating"] = rating
+        res["bt_band"] = bt_band(rating)
+        res["walls"]["rating"] = rating_wall
+    return res
+
+
+def recipe_check(mode: str) -> dict:
+    """``--recipe MODE``: the flagship recipe trained from scratch on the
+    card at the tool's ``FLAG_*`` knobs (defaults: JAX's record, 16 x 256 x
+    800), the actors on the folded bf16 net (``flagship-folded``, the
+    setting of JAX's record ``docs/train_flagship_gomoku15.json``) or on
+    today's default int8 executor (``flagship-int8``), then rated as
+    ``flagship_gomoku15@800`` of ``docs/anchor_evals.json`` (``flagship_run``).
+    Prints each iteration, the arena series, the anchor matches beside
+    JAX's, the Bradley-Terry rating with its +-2 sigma band beside JAX's,
+    the walls, the launches, and a cut where ``FLAG_ITERS`` is below 16.
+    Fails on a record whose keys are not JAX's, a kernel call that
+    disagrees with its plain version, an ``s8_mm`` launch or int8
+    evaluation in the folded run, or an int8 iteration without ``s8_mm``
+    launches (13 a 512-row chunk).  Strength is reported, not gated."""
+    if mode not in RECIPE_MODES:
+        raise ValueError(f"--recipe {mode}: not one of {sorted(RECIPE_MODES)}")
+    out_dir = os.path.join(ROOT, "build", "recipe", mode)
+    os.makedirs(out_dir, exist_ok=True)
+    jax_train = _jax_doc("train_flagship_gomoku15.json")
+    jax_rating = next(r for r in _jax_doc("anchor_evals.json")
+                      if r["candidate"] == "flagship_gomoku15@800")
+    from alphazero_tpu_torch.tools import train_flagship
+
+    knobs = train_flagship.knobs()
+    full = jax_train["config"]["iterations"]
+    if knobs["iters"] < full:
+        same, steps = schedule_prefix(train_flagship, knobs, full)
+        log(f"[recipe] depth cut: FLAG_ITERS={knobs['iters']} (JAX's record: {full}); "
+            f"the learning rate equals the full run's for the first {same} of the "
+            f"cut's {steps} learner steps (total_steps = max(iters * 64, 256))")
+    log(f"[recipe] {mode}: knobs " + json.dumps(knobs))
+    res = flagship_run(RECIPE_MODES[mode], out_dir, torch.device("cuda"))
+    held = _check_recorded(f"recipe_{mode}", res.pop("kernel_calls"), each=False)
+    summary = recipe_summary(mode, res, jax_train, jax_rating)
+    summary["signatures"] = len(held)
+    log(f"[recipe] {mode} " + json.dumps(summary))
+    with open(os.path.join(out_dir, "recipe.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+    bad = [k for k, ok in summary["keys"].items() if not ok]
+    bad += _launch_faults(res["inference"], res["launches"]["iterations"], on_card=True)
+    if bad:
+        raise AssertionError(f"[recipe] {mode}: {bad}")
+    return summary
+
+
+def schedule_prefix(tool, knobs: dict, full_iters: int) -> tuple:
+    """(the learner steps, from the first, at which the tool's recipe at
+    ``knobs`` has the learning rate of the same recipe at ``full_iters``
+    iterations; the learner steps ``knobs`` runs).  The recipes' warm-up
+    (500 steps) does not depend on ``total_steps``, so a cut run is the
+    full run's first part until its schedule leaves the warm-up."""
+    from alphazero_tpu_torch.training import schedulers
+
+    def lr(iters):
+        cfg = tool.recipe(dict(knobs, iters=iters), "unused")
+        lc = cfg.learner
+        return schedulers.make(lc.scheduler, lc.learning_rate, lc.total_steps,
+                               lc.warmup_steps), cfg.train_steps_per_iteration
+
+    (cut, per_iter), (ref, _) = lr(knobs["iters"]), lr(full_iters)
+    steps = knobs["iters"] * per_iter
+    return next((t for t in range(steps) if cut(t) != ref(t)), steps), steps
+
+
+def recipe_summary(mode: str, res: dict, jax_train: dict, jax_rating: dict) -> dict:
+    """``flagship_run``'s result beside JAX's records: losses, the arena
+    series up to the run's depth, each anchor's score, the rating with its
+    band and the uniform_mcts_16 gate, walls, launches, and whether each
+    record has the JAX record's keys."""
+    rec, rating = res["record"], res["rating"]
+    jax_scores = {m[1]: m[2:] for m in jax_rating["matches"]}
+    n = res["iterations"]
+    return {
+        "mode": mode, "inference": res["inference"], "iterations": n,
+        "cut": n < jax_train["config"]["iterations"],
+        "loss": {"first": rec["history"][0].get("loss"),
+                 "last": rec["history"][-1].get("loss"),
+                 "jax_first": jax_train["history"][0]["loss"],
+                 "jax_at_cut": jax_train["history"][n - 1]["loss"],
+                 "jax_last": jax_train["history"][-1]["loss"]},
+        "arena_series": rec["arena_series"],
+        "jax_arena_series": [s for s in jax_train["arena_series"]
+                             if int(s["player"].split("_")[1]) <= n],
+        "anchors": [{"anchor": m[1], "port": m[2:], "jax": jax_scores.get(m[1])}
+                    for m in rating["matches"]],
+        "bt": rating["bt_rating"], "bt_band": res["bt_band"],
+        "jax_bt": jax_rating["bt_rating"], "jax_bt_band": bt_band(jax_rating),
+        "jax_bt_in_band": res["bt_band"][0] <= jax_rating["bt_rating"] <= res["bt_band"][1],
+        "gate_uniform_mcts_16": rating["matches"][0][2] >= -(-3 * rating["games_per_anchor"] // 4),
+        "walls": {k: round(v, 1) for k, v in res["walls"].items()},
+        "jax_wall_s": jax_train["config"]["wall_s"],
+        "launches": res["launches"],
+        "keys": {"record": sorted(rec) == sorted(jax_train),
+                 "config": sorted(rec["config"]) == sorted(jax_train["config"]),
+                 "history": all(set(jax_train["history"][0]) <= set(h)
+                                for h in rec["history"]),
+                 "rating": sorted(rating) == sorted(jax_rating)},
+    }
+
+
+def _launch_faults(inference: str, per_iter: list, on_card: bool) -> list:
+    """The folded actor launches no ``s8_mm`` and evaluates nothing through
+    the int8 executor; the int8 actor builds it once an iteration and (on
+    the card, where the wrapper launches) ``s8_mm`` in every iteration, 13
+    launches a chunk (the flagship's trunk convs)."""
+    bad = []
+    for it, n in enumerate(per_iter):
+        if inference == "folded" and (n["s8_mm"] or n["int8_builds"] or n["int8_evals"]):
+            bad.append(f"iteration {it}: the folded actor ran the int8 executor {n}")
+        if inference == "int8" and not (n["int8_builds"] == 1 and n["int8_evals"] > 0
+                                        and n["s8_mm"] % 13 == 0):
+            bad.append(f"iteration {it}: int8 actor {n}")
+        if inference == "int8" and on_card and n["s8_mm"] <= 0:
+            bad.append(f"iteration {it}: no s8_mm launch")
+    return bad
 
 
 def ab_check(mode: str) -> dict:
@@ -3737,6 +4040,12 @@ def main() -> int:
         phase_device()
         phase_build()
         ab_check(sys.argv[2])
+        return 0
+    if len(sys.argv) > 2 and sys.argv[1] == "--recipe":
+        _, smi = phase_device()
+        phase_build()
+        recipe_check(sys.argv[2])
+        log(smi)
         return 0
     from alphazero_tpu_torch.core import registry
 

@@ -270,6 +270,92 @@ def test_flagship2_tiny_resume_writes_jax_keys(tmp_path, tiny, monkeypatch, unto
         "flagship2_snaps", "train_flagship2_t.json", "train_flagship2_t_elo.png"]
 
 
+def _recipe_tiny(tiny, monkeypatch):
+    """The flagship recipe at 15x15 (``scripts/anchor_eval.py`` rates
+    15x15 bundles) shrunk by ``tiny``: 1 iteration of 4 games at 8 sims, a
+    2-game recipe arena at 4 sims; the rating against two anchors, 2 games
+    each, every game capped at 8 plies."""
+    tiny(train_flagship, 15)
+    for k, v in dict(FLAG_ITERS="1", FLAG_GAMES="4", FLAG_SIMS="8",
+                     FLAG_EVAL_GAMES="2", FLAG_EVAL_SIMS="4").items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(arena.ArenaConfig, "__init__", _short_arena(arena.ArenaConfig.__init__))
+    orig_sides = arena.play_match_sides
+    monkeypatch.setattr(arena, "play_match_sides",
+                        lambda *a, **kw: orig_sides(*a, **dict(kw, max_moves=8)))
+    monkeypatch.setattr(anchors, "POOL", ("uniform_mcts_16", "attack_defense_64"))
+
+
+@pytest.fixture(scope="module")
+def jax_flagship_docs():
+    rating = next(r for r in json.loads((open(os.path.join(DOCS, "anchor_evals.json"))).read())
+                  if r["candidate"] == "flagship_gomoku15@800")
+    return _keys("train_flagship_gomoku15.json"), rating
+
+
+def test_recipe_modes_differ_only_in_inference(tmp_path, tiny, monkeypatch, untouched,
+                                               jax_flagship_docs):
+    """``chip_smoke.py --recipe``: both modes run ``train_flagship.main``
+    and rate its bundle with ``anchor_eval``; their ``PipelineConfig``s
+    differ only in ``inference`` (folded, and the tool's untouched int8);
+    the folded actor never reaches the int8 executor, the int8 actor
+    builds it once an iteration and evaluates through it; each mode writes
+    the JAX records' keys (``train_flagship_gomoku15.json``, the
+    ``anchor_evals.json`` row) and nothing under docs/ or models_zoo/."""
+    _recipe_tiny(tiny, monkeypatch)
+    jax_train, jax_rating = jax_flagship_docs
+    runs = {}
+    for mode, inference in chip_smoke.RECIPE_MODES.items():
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = chip_smoke.flagship_run(inference, str(tmp_path), torch.device("cpu"),
+                                          rate_games=2, rate_sims=4)
+        assert res.pop("kernel_calls").cases  # the search's gathers were recorded
+        summary = chip_smoke.recipe_summary(mode, res, jax_train, jax_rating)
+        assert summary["keys"] == {"record": True, "config": True, "history": True,
+                                   "rating": True}
+        assert chip_smoke._launch_faults(res["inference"], res["launches"]["iterations"],
+                                         on_card=False) == []
+        assert summary["cut"] and summary["iterations"] == 1
+        assert [a["anchor"] for a in summary["anchors"]] == list(anchors.POOL)
+        assert summary["bt_band"][0] < summary["bt"] < summary["bt_band"][1]
+        assert sorted(os.listdir(tmp_path)) == [
+            "anchor_evals.json", "flagship_gomoku15", "flagship_gomoku15.json",
+            "train_flagship_gomoku15.json", "train_flagship_gomoku15_elo.png",
+            "train_flagship_gomoku15_loss.png"]
+        for name in ("anchor_evals.json", "train_flagship_gomoku15.json"):
+            os.remove(tmp_path / name)
+        runs[mode] = res
+    folded, int8 = runs["flagship-folded"], runs["flagship-int8"]
+    assert int8["config"].inference == production.INFERENCE == "int8"
+    assert folded["config"] == dataclasses.replace(int8["config"], inference="folded")
+    assert folded["launches"]["iterations"] == [
+        {"gather_rows": 0, "s8_mm": 0, "int8_builds": 0, "int8_evals": 0}]
+    it = int8["launches"]["iterations"][0]
+    assert it["int8_builds"] == 1 and it["int8_evals"] > 0
+
+
+@pytest.mark.parametrize("iters, prefix", [(4, (256, 256)), (8, (501, 512)),
+                                           (16, (1024, 1024))])
+def test_cut_recipe_shares_the_full_runs_schedule(iters, prefix):
+    """The flagship recipe's warm-up (500 learner steps) does not depend on
+    ``total_steps``: a 4-iteration cut runs the full run's learning rates
+    throughout, an 8-iteration cut for its first 501 steps."""
+    knobs = dict(train_flagship.knobs(), iters=iters)
+    assert chip_smoke.schedule_prefix(train_flagship, knobs, 16) == prefix
+
+
+def test_bt_band_of_jax_flagship_rating(jax_flagship_docs):
+    """The band is the rating -+ 2 standard errors from the Fisher
+    information of the candidate's games; four times the games halve it."""
+    _, rating = jax_flagship_docs
+    lo, hi = chip_smoke.bt_band(rating)
+    assert lo < rating["bt_rating"] < hi
+    assert abs((hi - rating["bt_rating"]) - (rating["bt_rating"] - lo)) < 0.2
+    more = dict(rating, matches=[m[:2] + [4 * x for x in m[2:]] for m in rating["matches"]])
+    lo4, hi4 = chip_smoke.bt_band(more)
+    assert abs((hi4 - lo4) - (hi - lo) / 2) < 0.3
+
+
 def test_outputs_under_docs_or_models_zoo_are_refused(untouched):
     for path in ("docs/train_zoo_go9.json", os.path.join(REPO, "models_zoo", "x.json")):
         with pytest.raises(ValueError):
