@@ -10,7 +10,9 @@ weights carry over unchanged.
 
 ``forward(obs, train=False)`` runs in the parameters' dtype (cast the
 module, as ``make_inference_eval_fn`` does, for bf16), BatchNorm on its
-running statistics.  ``forward(obs, train=True)`` follows flax's dtype
+running statistics; ``forward(obs, dtype=cfg.dtype)`` runs it under
+flax's dtype policy below, as JAX's ``model.apply(variables, obs)`` does
+(``make_raw_eval_fn``).  ``forward(obs, train=True)`` follows flax's dtype
 policy for ``dtype=cfg.dtype, param_dtype=float32``: the parameters stay
 float32 master weights, every conv and dense layer computes in ``cfg.dtype``
 from cast inputs and weights, the norms compute their statistics and affine
@@ -81,8 +83,11 @@ class BatchNorm(nn.BatchNorm2d):
 
     def forward(self, x, train: bool = False):
         if not train:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+            # In float32 and cast back, as flax's ``dtype=float32`` layer.
+            y = F.batch_norm(x.float(), self.running_mean.float(),
+                             self.running_var.float(), self.weight.float(),
+                             self.bias.float(), False, 0.0, self.eps)
+            return y.to(x.dtype)
         x32 = x.float()
         mean = x32.mean((0, 2, 3))
         sq = (x32 * x32).mean((0, 2, 3))
@@ -222,8 +227,11 @@ class AZResNet(nn.Module):
         self.policy_fc.weight.zero_()
         self.value_fc2.weight.zero_()
 
-    def forward(self, obs: torch.Tensor, train: bool = False):
-        dt = self.cfg.dtype if train else self.stem.weight.dtype
+    def forward(self, obs: torch.Tensor, train: bool = False,
+                dtype: torch.dtype | None = None):
+        """``dtype``: the convs' and dense layers' compute dtype (default
+        ``cfg.dtype`` in train mode, the weights' dtype in eval mode)."""
+        dt = dtype or (self.cfg.dtype if train else self.stem.weight.dtype)
         x = obs.to(dt)
         x = torch.relu(self.stem_bn(_conv(self.stem, x, dt), train))
         for blk in self.blocks:
@@ -271,6 +279,22 @@ def make_eval_fn(model: nn.Module):
     @torch.no_grad()
     def eval_fn(obs, to_play=None):
         return model(obs)
+
+    return eval_fn
+
+
+def make_raw_eval_fn(model: AZResNet):
+    """The raw net in eval mode as JAX's ``model.apply(variables, obs)``
+    runs it (the evaluator of JAX's ``tools/train_flagship.py`` and
+    ``tools/train_demo.py`` arenas): the float32 master weights cast to
+    ``cfg.dtype`` for every conv and dense layer, BatchNorm's running
+    statistics and affine in float32.  Neither the folded net (BN folded
+    into bf16 weights and biases) nor ``forward``'s eval default (float32
+    throughout for float32 weights) is that net."""
+
+    @torch.no_grad()
+    def eval_fn(obs, to_play=None):
+        return model(obs, dtype=model.cfg.dtype)
 
     return eval_fn
 

@@ -92,11 +92,11 @@ def add_args(parser, output: str) -> None:
                         help="JSON record (default build/tools/%(default)s)")
 
 
-def train_iterations(pipe, iters: int, on_iteration=None) -> list:
-    """``iters`` pipeline iterations, each entry printed as the JAX tools
-    print it; ``on_iteration(it)`` after each."""
+def train_iterations(pipe, iters: int, on_iteration=None, start: int = 0) -> list:
+    """Pipeline iterations ``start`` to ``iters - 1``, each entry printed as
+    the JAX tools print it; ``on_iteration(it)`` after each."""
     history = []
-    for it in range(iters):
+    for it in range(start, iters):
         entry = pipe.run_iteration(it)
         history.append(entry)
         print(f"[{time.strftime('%H:%M:%S')}] iter {it}: {json.dumps(entry)}",

@@ -4,8 +4,9 @@ import; this runs in ``main``).
 
 Gomoku 9x9 by default: a 4x64 SE-ResNet, a constant learning rate, 512
 self-play games an iteration at 128 simulations with the production int8
-actors; then 64 games of the trained net (BN-folded bf16, 64 simulations,
-W=1, T=0.1) against the uniform stub with value noise.  The record
+actors; then 64 games of the trained net (the raw BatchNorm net as JAX's
+``model.apply`` runs it, ``make_raw_eval_fn``; 64 simulations, W=1,
+T=0.1) against the uniform stub with value noise.  The record
 (iterations, train wall s, the history, the arena's wins) goes to
 ``--output``; one summary line is printed.
 
@@ -76,7 +77,7 @@ def main(argv=None) -> dict:
 
     from alphazero_tpu_torch.eval.arena import ArenaConfig, play_match
     from alphazero_tpu_torch.mcts.search import MCTSConfig
-    from alphazero_tpu_torch.models.resnet import make_inference_eval_fn
+    from alphazero_tpu_torch.models.resnet import make_raw_eval_fn
     from alphazero_tpu_torch.models.stub import make_uniform_eval_fn
     from alphazero_tpu_torch.training.pipeline import Pipeline
 
@@ -90,7 +91,7 @@ def main(argv=None) -> dict:
     train_s = time.time() - t0
 
     env = pipe.env
-    eval_trained = make_inference_eval_fn(pipe.state.module)
+    eval_trained = make_raw_eval_fn(pipe.state.module)
     eval_random = make_uniform_eval_fn(env.num_actions, value_noise=0.1)
     acfg = ArenaConfig(mcts=MCTSConfig(num_simulations=64, dirichlet_epsilon=0.0),
                        max_moves=cfg.selfplay.max_moves, temperature=0.1)

@@ -5,7 +5,11 @@ Trains for a bounded budget, keeps the weights every ``FLAG_EVAL_EVERY``
 iterations and plays each kept net against the iteration-0 net and its
 predecessor (``play_match``: one batched search, colours swapped between
 the halves, fixed simulations), rated with sequential Elo
-(``elo/tracker.py``).  Writes the record (pipeline history, the arena
+(``elo/tracker.py``).  The arena evaluates each kept net as JAX's tool
+does, the raw BatchNorm net through ``model.apply`` (``make_raw_eval_fn``:
+bf16 convs and dense layers from the float32 weights, BatchNorm's running
+statistics and affine in float32), not the BN-folded bf16 net the actors
+run.  Writes the record (pipeline history, the arena
 series, the Elo table) to ``--output``, the final weights as a bundle and
 the loss and Elo plots beside it.
 
@@ -19,7 +23,6 @@ from __future__ import annotations
 
 import argparse
 import copy
-import json
 import os
 import time
 
@@ -61,6 +64,100 @@ def recipe(k: dict, checkpoint_dir: str):
     )
 
 
+def arena_config(k: dict):
+    from alphazero_tpu_torch.eval.arena import ArenaConfig
+    from alphazero_tpu_torch.mcts.search import MCTSConfig
+
+    return ArenaConfig(mcts=MCTSConfig(num_simulations=k["eval_sims"],
+                                       dirichlet_epsilon=0.0), max_moves=225)
+
+
+class Run:
+    """The recipe's state between iterations: the pipeline, the kept nets
+    (copies of the learner's module by iteration), the Elo table and the
+    arena series.  ``train(start, stop)`` runs iterations ``start`` to
+    ``stop - 1``, each followed by its arena where one is due."""
+
+    def __init__(self, k: dict, cfg, device):
+        from alphazero_tpu_torch.elo.tracker import EloTracker
+        from alphazero_tpu_torch.training.pipeline import Pipeline
+
+        self.k, self.device = k, device
+        self.pipe = Pipeline(cfg, device=device)
+        self.arena_cfg = arena_config(k)
+        self.nets = {0: self.keep()}
+        self.elo = EloTracker()
+        self.elo.add_player("iter_0")
+        self.series = []
+
+    def keep(self):
+        return copy.deepcopy(self.pipe.state.module)
+
+    def rate(self, it: int) -> None:
+        from alphazero_tpu_torch.eval.arena import play_match
+        from alphazero_tpu_torch.models.resnet import make_raw_eval_fn
+
+        k, step = self.k, it + 1
+        if step % k["eval_every"] and step != k["iters"]:
+            return
+        self.nets[step] = self.keep()
+        name = f"iter_{step}"
+        self.elo.add_player(name)
+        opponents = ["iter_0"]
+        prev = sorted(s for s in self.nets if 0 < s < step)
+        if prev:
+            opponents.append(f"iter_{prev[-1]}")
+        for opp in dict.fromkeys(opponents):
+            opp_step = int(opp.split("_")[1])
+            res = play_match(self.pipe.env, make_raw_eval_fn(self.nets[step]),
+                             make_raw_eval_fn(self.nets[opp_step]),
+                             _common.generator(self.device, 9000 + step * 100 + opp_step),
+                             self.arena_cfg, k["eval_games"], device=self.device)
+            wa, wb, dr = int(res.wins_a), int(res.wins_b), int(res.draws)
+            self.elo.add_series(name, opp, wa, wb, dr)
+            rec = {"player": name, "opponent": opp, "wins": wa, "losses": wb,
+                   "draws": dr, "rating": round(self.elo.get_rating(name), 1),
+                   "opp_rating": round(self.elo.get_rating(opp), 1)}
+            self.series.append(rec)
+            print(f"  arena {name} vs {opp}: +{wa} -{wb} ={dr} "
+                  f"({rec['rating']} vs {rec['opp_rating']})", flush=True)
+
+    def train(self, start: int, stop: int) -> None:
+        _common.train_iterations(self.pipe, stop, self.rate, start=start)
+
+    def finish(self, out: str, bundle: str, wall_s: float) -> dict:
+        """Writes the record to ``out``, the final weights as a bundle and
+        the plots beside ``out``; returns the record."""
+        from alphazero_tpu_torch.models.io import save_model
+        from alphazero_tpu_torch.utils.visualization import (
+            plot_elo_history, plot_training_history,
+        )
+
+        k, pipe = self.k, self.pipe
+        payload = {
+            "config": {
+                "iterations": k["iters"], "games_per_iteration": k["games"],
+                "simulations": k["sims"], "eval_games": k["eval_games"],
+                "eval_sims": k["eval_sims"], "wall_s": round(wall_s, 1),
+            },
+            "history": pipe.history,
+            "arena_series": self.series,
+            "elo": {p: round(self.elo.get_rating(p), 1) for p, _ in self.elo.leaderboard()},
+        }
+        _common.write_json(out, payload)
+        save_model(bundle, pipe.state.module, "resnet", pipe.env.num_actions,
+                   pipe.config.model)
+        print(f"wrote {out}, {bundle} (+.json)", flush=True)
+        stem = os.path.splitext(out)[0]
+        try:
+            p1 = plot_training_history(pipe.history, _common.check_output(stem + "_loss.png"))
+            p2 = plot_elo_history(self.elo, _common.check_output(stem + "_elo.png"))
+            print(f"wrote {p1} and {p2}", flush=True)
+        except ImportError as e:  # no matplotlib: the plots are optional, as in JAX
+            print(f"plotting skipped: {e}", flush=True)
+        return payload
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -73,78 +170,10 @@ def main(argv=None) -> dict:
 
     import torch
 
-    from alphazero_tpu_torch.elo.tracker import EloTracker
-    from alphazero_tpu_torch.eval.arena import ArenaConfig, play_match
-    from alphazero_tpu_torch.mcts.search import MCTSConfig
-    from alphazero_tpu_torch.models.io import save_model
-    from alphazero_tpu_torch.models.resnet import make_inference_eval_fn
-    from alphazero_tpu_torch.training.pipeline import Pipeline
-    from alphazero_tpu_torch.utils.visualization import (
-        plot_elo_history, plot_training_history,
-    )
-
-    dev = torch.device(args.device)
-    cfg = recipe(k, _common.beside(out, "flagship_ckpt"))
-    pipe = Pipeline(cfg, device=dev)
-    arena_cfg = ArenaConfig(mcts=MCTSConfig(num_simulations=k["eval_sims"],
-                                            dirichlet_epsilon=0.0), max_moves=225)
-
-    def snap():
-        return make_inference_eval_fn(copy.deepcopy(pipe.state.module))
-
-    snapshots = {0: snap()}
-    elo = EloTracker()
-    elo.add_player("iter_0")
-    series = []
-
-    def rate(it):
-        step = it + 1
-        if step % k["eval_every"] and step != k["iters"]:
-            return
-        snapshots[step] = snap()
-        name = f"iter_{step}"
-        elo.add_player(name)
-        opponents = ["iter_0"]
-        prev = sorted(s for s in snapshots if 0 < s < step)
-        if prev:
-            opponents.append(f"iter_{prev[-1]}")
-        for opp in dict.fromkeys(opponents):
-            opp_step = int(opp.split("_")[1])
-            res = play_match(pipe.env, snapshots[step], snapshots[opp_step],
-                             _common.generator(dev, 9000 + step * 100 + opp_step),
-                             arena_cfg, k["eval_games"], device=dev)
-            wa, wb, dr = int(res.wins_a), int(res.wins_b), int(res.draws)
-            elo.add_series(name, opp, wa, wb, dr)
-            rec = {"player": name, "opponent": opp, "wins": wa, "losses": wb,
-                   "draws": dr, "rating": round(elo.get_rating(name), 1),
-                   "opp_rating": round(elo.get_rating(opp), 1)}
-            series.append(rec)
-            print(f"  arena {name} vs {opp}: +{wa} -{wb} ={dr} "
-                  f"({rec['rating']} vs {rec['opp_rating']})", flush=True)
-
+    run = Run(k, recipe(k, _common.beside(out, "flagship_ckpt")), torch.device(args.device))
     t0 = time.time()
-    _common.train_iterations(pipe, k["iters"], rate)
-    payload = {
-        "config": {
-            "iterations": k["iters"], "games_per_iteration": k["games"],
-            "simulations": k["sims"], "eval_games": k["eval_games"],
-            "eval_sims": k["eval_sims"], "wall_s": round(time.time() - t0, 1),
-        },
-        "history": pipe.history,
-        "arena_series": series,
-        "elo": {p: round(elo.get_rating(p), 1) for p, _ in elo.leaderboard()},
-    }
-    _common.write_json(out, payload)
-    save_model(bundle, pipe.state.module, "resnet", pipe.env.num_actions, cfg.model)
-    print(f"wrote {out}, {bundle} (+.json)", flush=True)
-    stem = os.path.splitext(out)[0]
-    try:
-        p1 = plot_training_history(pipe.history, _common.check_output(stem + "_loss.png"))
-        p2 = plot_elo_history(elo, _common.check_output(stem + "_elo.png"))
-        print(f"wrote {p1} and {p2}", flush=True)
-    except ImportError as e:  # no matplotlib: the plots are optional, as in JAX
-        print(f"plotting skipped: {e}", flush=True)
-    return payload
+    run.train(0, k["iters"])
+    return run.finish(out, bundle, time.time() - t0)
 
 
 if __name__ == "__main__":

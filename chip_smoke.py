@@ -201,7 +201,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
  17. summary: one JSON line of kernels, then the final status line.
 
     python3 chip_smoke.py --ab MODE   # one A/B of tools/ab_arena.py alone
-    python3 chip_smoke.py --recipe flagship-folded|flagship-int8
+    python3 chip_smoke.py --recipe flagship-folded|flagship-int8 [--until N]
+        [--controls] [--seed S]
 
 runs the device and build phases, then one A/B at the ``AB_*`` knobs'
 size under the routing check, with every kernel call held against its
@@ -212,7 +213,13 @@ knobs (defaults: JAX's record, 16 iterations x 256 games x 800
 simulations) with only the actors' inference set (``folded``, as JAX's
 record was made, or the recipe's own int8), rates the bundle as JAX rated
 ``flagship_gomoku15@800`` and prints both beside JAX's (``recipe_check``);
-its record, bundle and summary go under ``build/recipe/<MODE>/``.
+its record, bundle and summary go under ``build/recipe/<MODE>/``.  The
+run goes in legs: ``--until N`` stops after iteration N - 1 and saves the
+state there (the pipeline's checkpoint with its ring, the kept nets, the
+Elo tracker and the series), and the next call resumes from it; the leg
+that reaches the last iteration rates and prints the summary.
+``--controls`` plays the controls of the recipe arena's iter_4 vs iter_0
+at the leg's end; ``--seed S`` trains from another seed.
 
 gather_rows times are taken with warm L2 (the search re-reads the same
 arenas within a wave); its ``bound_ms`` counts the bytes the call must move
@@ -2607,6 +2614,11 @@ def phase_records(env, out, games: int = 64) -> dict:
     from alphazero_tpu_torch.selfplay.game_record import records_from_selfplay
 
     records = records_from_selfplay(env, out, max_games=games)
+    # A record without a timestamp reads the clock each time it is encoded,
+    # so two encodings on either side of a second differ: stamp them once.
+    stamp = time.strftime("%Y-%m-%dT%H:%M:%S")
+    for r in records:
+        r.timestamp = stamp
     mod = native.get_azrecord()
     if mod is None:
         raise AssertionError("[records] the native encoder did not build")
@@ -3393,29 +3405,147 @@ def bt_band(rec: dict) -> list:
     return [round(r - 2 * se, 1), round(r + 2 * se, 1)]
 
 
+def _net_sha(net) -> str:
+    """sha256 of the bundle ``models/io.save_model`` writes for ``net``."""
+    import hashlib
+
+    from alphazero_tpu_torch.models.io import model_variables, write_msgpack
+
+    return hashlib.sha256(write_msgpack(model_variables(net))).hexdigest()
+
+
+def _save_leg(run, legs_dir: str, done: int, acc: dict) -> None:
+    """A leg's end, for the next leg to resume from: the pipeline's
+    checkpoint of iteration ``done - 1`` with its replay ring (the
+    pipeline's own ``checkpoint_dir``), every kept net as a bundle, the Elo
+    tracker, and ``legs.json`` (the knobs, the history, the arena series,
+    each bundle's sha256 and the harness's walls and launch counts)."""
+    from alphazero_tpu_torch.models.io import save_model
+
+    pipe = run.pipe
+    os.makedirs(legs_dir, exist_ok=True)
+    pipe.save_checkpoint(done - 1)
+    bundles = {}
+    for step, net in sorted(run.nets.items()):
+        path = os.path.join(legs_dir, f"iter_{step}")
+        save_model(path, net, "resnet", pipe.env.num_actions, pipe.config.model)
+        bundles[str(step)] = _net_sha(net)
+    run.elo.save(os.path.join(legs_dir, "elo.json"))
+    state = {"knobs": run.k, "done": done, "history": pipe.history,
+             "arena_series": run.series, "bundles": bundles, "acc": acc}
+    with open(os.path.join(legs_dir, "legs.json"), "w") as f:
+        json.dump(state, f, indent=2)
+
+
+def _restore_leg(run, legs_dir: str) -> tuple:
+    """``(iterations done, the harness's accumulators)`` after loading what
+    ``_save_leg`` wrote into ``run``: the checkpoint (weights, optimizer,
+    step, generators, ring), the history, the series, the Elo tracker and
+    the nets the recipe still plays (iteration 0's and the last kept one).
+    Iteration 0's net is the seed's, which every leg's pipeline builds; a
+    net kept at the last iteration done is the checkpoint's; any other is
+    read from its bundle.  Each is held against its bundle's sha256."""
+    from alphazero_tpu_torch.elo.tracker import EloTracker
+    from alphazero_tpu_torch.models.io import load_model
+
+    with open(os.path.join(legs_dir, "legs.json")) as f:
+        state = json.load(f)
+    if state["knobs"] != run.k:
+        raise ValueError(f"legs in {legs_dir} ran at {state['knobs']}, not {run.k}")
+    done, pipe = state["done"], run.pipe
+    pipe.restore_checkpoint(done - 1)
+    pipe.history = state["history"]
+    run.series = state["arena_series"]
+    run.elo = EloTracker.load(os.path.join(legs_dir, "elo.json"))
+    steps = sorted(int(s) for s in state["bundles"])
+    nets = {}
+    for step in {0, steps[-1]}:
+        if step == 0:
+            net = run.nets[0]
+        elif step == done:
+            net = run.keep()
+        else:
+            net, _ = load_model(os.path.join(legs_dir, f"iter_{step}"),
+                                pipe.env.observation_shape, device=run.device)
+        if _net_sha(net) != state["bundles"][str(step)]:
+            raise AssertionError(f"iter_{step} differs from the bundle the last leg saved")
+        nets[step] = net
+    run.nets = nets
+    return done, state["acc"]
+
+
+def recipe_controls(run, device) -> list:
+    """Controls of the recipe arena's iter_4 vs iter_0, each a match of the
+    recipe's arena (``train_flagship.arena_config``, ``FLAG_EVAL_GAMES``
+    games): (a) the same nets at three more seeds (the recipe's is 9400);
+    (b) JAX's own 16-iteration net (``models_zoo/flagship_gomoku15``) against
+    iter_0, both through the recipe's evaluator (JAX's record: iter_16 vs
+    iter_0 128-0); (c) iter_4 vs iter_0 both BN-folded in bf16 (the
+    evaluator of the recipe's arena until slice 15), at the recipe's seed."""
+    from alphazero_tpu_torch.eval.arena import play_match
+    from alphazero_tpu_torch.models.io import load_model
+    from alphazero_tpu_torch.models.resnet import (
+        make_inference_eval_fn, make_raw_eval_fn,
+    )
+    from alphazero_tpu_torch.tools import _common
+
+    env, games = run.pipe.env, run.k["eval_games"]
+    raw = {s: make_raw_eval_fn(run.nets[s]) for s in (0, 4)}
+    jax_net, _ = load_model(os.path.join(ROOT, "models_zoo", "flagship_gomoku15"),
+                            env.observation_shape, device=device)
+    cases = [("a_seed", "iter_4", "iter_0", raw[4], raw[0], 9400 + j) for j in (1, 2, 3)]
+    cases.append(("b_jax_net", "flagship_gomoku15", "iter_0", make_raw_eval_fn(jax_net),
+                  raw[0], 9000 + 16 * 100))
+    cases.append(("c_folded", "iter_4", "iter_0", make_inference_eval_fn(run.nets[4]),
+                  make_inference_eval_fn(run.nets[0]), 9400))
+    rows = []
+    for tag, a, b, eval_a, eval_b, seed in cases:
+        t0 = time.perf_counter()
+        res = play_match(env, eval_a, eval_b, _common.generator(device, seed),
+                         run.arena_cfg, games, device=device)
+        rows.append({"control": tag, "player": a, "opponent": b, "seed": seed,
+                     "wins": int(res.wins_a), "losses": int(res.wins_b),
+                     "draws": int(res.draws), "wall_s": round(time.perf_counter() - t0, 1)})
+        log("[recipe] control " + json.dumps(rows[-1]))
+    return rows
+
+
 def flagship_run(inference, out_dir: str, device, rate_games: int = 64,
-                 rate_sims: int = 800) -> dict:
-    """``tools/train_flagship.py``'s ``main`` at its ``FLAG_*`` knobs, with
-    only ``PipelineConfig.inference`` replaced (``inference`` None: the
-    tool's recipe untouched), writing its record and bundle under
+                 rate_sims: int = 800, until: int | None = None,
+                 legs_dir: str | None = None, controls: bool = False,
+                 seed: int | None = None) -> dict:
+    """``tools/train_flagship.py``'s recipe at its ``FLAG_*`` knobs, run as
+    its ``main`` runs it (``train_flagship.Run``), with only
+    ``PipelineConfig.inference`` replaced (``inference`` None: the tool's
+    recipe as it is) and the ring kept in the pipeline's checkpoints
+    (``checkpoint_replay``), writing its record and bundle under
     ``out_dir``; then, unless ``rate_games`` is 0, ``scripts/anchor_eval.py``
     on the final bundle at ``rate_sims`` simulations, ``rate_games`` games an
     anchor, W=16, 6 random opening moves (JAX's ``flagship_gomoku15@800``
     settings), the committed round-robin read only.  Counts, each iteration
     and in the rating, the ``s8_mm`` and ``gather_rows`` launches, the int8
     executor's builds and evaluations, and records every kernel call
-    (``_KernelCalls``); times the recipe's own arena evaluations."""
+    (``_KernelCalls``); times the recipe's own arena evaluations.
+
+    With ``legs_dir`` the run is one leg: it resumes from what an earlier
+    leg saved there (``_restore_leg``), runs the iterations before
+    ``until`` (default: all), and, if it stops before the last, saves its
+    state there (``_save_leg``) and returns ``{"done": False, ...}``; the
+    leg that runs the last iteration writes the record, rates the bundle
+    and returns what a one-call run returns.  ``controls`` plays
+    ``recipe_controls`` at the leg's end (iterations 0 and 4 kept).
+    ``seed`` replaces ``PipelineConfig.seed`` (the initial net and every
+    draw of the run), a control of the run's own spread."""
     from alphazero_tpu_torch.eval import arena
     from alphazero_tpu_torch.models import quant
     from alphazero_tpu_torch.ops.gather_rows import gather_rows
     from alphazero_tpu_torch.ops.s8_mm import s8_mm
     from alphazero_tpu_torch.scripts import anchor_eval
-    from alphazero_tpu_torch.tools import train_flagship
+    from alphazero_tpu_torch.tools import _common, train_flagship
     from alphazero_tpu_torch.training import pipeline
 
     counts = {"int8_builds": 0, "int8_evals": 0}
-    configs, per_iter, eval_walls = [], [], []
-    outside = {}  # launches between iterations: the recipe's arena evaluations
+    acc = {"iterations": [], "recipe_evals": {}, "eval_walls": [], "recipe_wall": 0.0}
 
     def launches():
         out = {"gather_rows": gather_rows.launches, "s8_mm": s8_mm.launches,
@@ -3430,31 +3560,33 @@ def flagship_run(inference, out_dir: str, device, rate_games: int = 64,
             return orig[name](*a, **kw)
         return f
 
-    def recipe(k, ckpt):
-        cfg = orig["recipe"](k, ckpt)
-        if inference is not None:
-            cfg = dataclasses.replace(cfg, inference=inference)
-        configs.append(cfg)
-        return cfg
-
-    def add(acc, n):
+    def add(into, n):
         for key, v in n.items():
-            acc[key] = acc.get(key, 0) + v
+            into[key] = into.get(key, 0) + v
 
     def run_iteration(self, it):
-        add(outside, launches())
+        add(acc["recipe_evals"], launches())
         entry = orig["run_iteration"](self, it)
-        per_iter.append(launches())
+        acc["iterations"].append(launches())
         return entry
 
     def play_match(*a, **kw):
         t0 = time.perf_counter()
         res = orig["play_match"](*a, **kw)
-        eval_walls.append(time.perf_counter() - t0)
+        acc["eval_walls"].append(time.perf_counter() - t0)
         return res
 
-    patches = {(train_flagship, "recipe"): recipe,
-               (pipeline.Pipeline, "run_iteration"): run_iteration,
+    k = train_flagship.knobs()
+    stop = min(until or k["iters"], k["iters"])
+    out = os.path.join(out_dir, "train_flagship_gomoku15.json")
+    bundle = os.path.join(out_dir, "flagship_gomoku15")
+    cfg = train_flagship.recipe(k, _common.beside(out, "flagship_ckpt"))
+    cfg = dataclasses.replace(cfg, checkpoint_replay=True)
+    if inference is not None:
+        cfg = dataclasses.replace(cfg, inference=inference)
+    if seed is not None:
+        cfg = dataclasses.replace(cfg, seed=seed)
+    patches = {(pipeline.Pipeline, "run_iteration"): run_iteration,
                (arena, "play_match"): play_match,
                (quant, "make_production_eval_params"): counted(
                    "int8_builds", "make_production_eval_params"),
@@ -3462,68 +3594,91 @@ def flagship_run(inference, out_dir: str, device, rate_games: int = 64,
     orig = {name: getattr(obj, name) for obj, name in patches}
     for (obj, name), fn in patches.items():
         setattr(obj, name, fn)
-    out = os.path.join(out_dir, "train_flagship_gomoku15.json")
-    bundle = os.path.join(out_dir, "flagship_gomoku15")
-    os.environ["FLAG_MODEL_OUT"] = bundle
+    res = {"inference": cfg.inference, "config": cfg}
     try:
         with _KernelCalls() as rec:
             t0 = time.perf_counter()
-            payload = train_flagship.main(["--device", str(device), "--output", out])
-            recipe_wall = time.perf_counter() - t0
-            add(outside, launches())
-            rating = None
-            if rate_games:
-                knobs = dict(AE_GAMES=str(rate_games), AE_WAVE="16", AE_OPENING="6")
-                os.environ.update(knobs)
-                try:
-                    t0 = time.perf_counter()
-                    rating = anchor_eval.main([bundle, str(rate_sims), "--output",
-                                               os.path.join(out_dir, "anchor_evals.json"),
-                                               "--device", str(device)])
-                    rating_wall = time.perf_counter() - t0
-                finally:
-                    for k in knobs:
-                        os.environ.pop(k)
-            rated = launches()
+            run = train_flagship.Run(k, cfg, device)
+            start = 0
+            if legs_dir and os.path.exists(os.path.join(legs_dir, "legs.json")):
+                start, acc = _restore_leg(run, legs_dir)
+            if stop <= start:
+                raise ValueError(f"--until {stop}: iterations 0 to {start - 1} are done")
+            log(f"[recipe] iterations {start} to {stop - 1} of {k['iters']}")
+            run.train(start, stop)
+            acc["recipe_wall"] += time.perf_counter() - t0
+            add(acc["recipe_evals"], launches())
+            res.update(done=stop == k["iters"], leg=[start, stop])
+            if not res["done"]:
+                _save_leg(run, legs_dir, stop, acc)
+            else:
+                t0 = time.perf_counter()
+                payload = run.finish(out, bundle, acc["recipe_wall"])
+                acc["recipe_wall"] += time.perf_counter() - t0
+                if rate_games:
+                    knobs = dict(AE_GAMES=str(rate_games), AE_WAVE="16", AE_OPENING="6")
+                    os.environ.update(knobs)
+                    try:
+                        t0 = time.perf_counter()
+                        rating = anchor_eval.main([
+                            bundle, str(rate_sims), "--output",
+                            os.path.join(out_dir, "anchor_evals.json"),
+                            "--device", str(device)])
+                        res["rating"], res["bt_band"] = rating, bt_band(rating)
+                        res["rating_wall"] = time.perf_counter() - t0
+                    finally:
+                        for name in knobs:
+                            os.environ.pop(name)
+                res["rating_launches"] = launches()
     finally:
-        os.environ.pop("FLAG_MODEL_OUT")
         for obj, name in patches:
             setattr(obj, name, orig[name])
-    hist = payload["history"]
-    res = {
-        "inference": configs[0].inference, "iterations": len(hist),
-        "record": payload, "config": configs[0],
-        "launches": {"iterations": per_iter, "recipe_evals": outside, "rating": rated},
-        "walls": {"recipe": recipe_wall,
-                  "actor": sum(h["actor_s"] for h in hist),
-                  "learner": sum(h["train_s"] for h in hist),
-                  "recipe_evals": sum(eval_walls)},
-        "kernel_calls": rec,
-    }
-    if rating is not None:
-        res["rating"] = rating
-        res["bt_band"] = bt_band(rating)
-        res["walls"]["rating"] = rating_wall
+    res["kernel_calls"] = rec
+    if controls:
+        with _KernelCalls() as ctl:
+            res["controls"] = recipe_controls(run, device)
+        res["control_calls"] = ctl
+    hist = run.pipe.history
+    res.update(iterations=len(hist), history=hist, arena_series=run.series,
+               launches={"iterations": acc["iterations"], "recipe_evals": acc["recipe_evals"]},
+               walls={"recipe": acc["recipe_wall"],
+                      "actor": sum(h["actor_s"] for h in hist),
+                      "learner": sum(h["train_s"] for h in hist),
+                      "recipe_evals": sum(acc["eval_walls"])})
+    if res["done"]:
+        res["record"] = payload
+        res["launches"]["rating"] = res.pop("rating_launches")
+        if "rating_wall" in res:
+            res["walls"]["rating"] = res.pop("rating_wall")
     return res
 
 
-def recipe_check(mode: str) -> dict:
-    """``--recipe MODE``: the flagship recipe trained from scratch on the
-    card at the tool's ``FLAG_*`` knobs (defaults: JAX's record, 16 x 256 x
-    800), the actors on the folded bf16 net (``flagship-folded``, the
-    setting of JAX's record ``docs/train_flagship_gomoku15.json``) or on
-    today's default int8 executor (``flagship-int8``), then rated as
-    ``flagship_gomoku15@800`` of ``docs/anchor_evals.json`` (``flagship_run``).
-    Prints each iteration, the arena series, the anchor matches beside
-    JAX's, the Bradley-Terry rating with its +-2 sigma band beside JAX's,
-    the walls, the launches, and a cut where ``FLAG_ITERS`` is below 16.
-    Fails on a record whose keys are not JAX's, a kernel call that
-    disagrees with its plain version, an ``s8_mm`` launch or int8
+def recipe_check(mode: str, until: int | None = None, controls: bool = False,
+                 seed: int | None = None) -> dict:
+    """``--recipe MODE [--until N] [--controls] [--seed S]``: the flagship recipe
+    trained from scratch on the card at the tool's ``FLAG_*`` knobs
+    (defaults: JAX's record, 16 x 256 x 800), the actors on the folded bf16
+    net (``flagship-folded``, the setting of JAX's record
+    ``docs/train_flagship_gomoku15.json``) or on today's default int8
+    executor (``flagship-int8``), then rated as ``flagship_gomoku15@800``
+    of ``docs/anchor_evals.json`` (``flagship_run``).  In legs: each call
+    resumes from the state the last one saved under
+    ``build/recipe/<MODE>/`` and runs until iteration ``N`` (default: the
+    last); ``controls`` plays ``recipe_controls`` at the leg's end; ``seed``
+    runs the recipe from another seed (a control; its files go under
+    ``build/recipe/<MODE>-seed<S>/``).  A leg
+    before the last prints its iterations, arena series, walls and
+    launches; the last prints each iteration, the arena series, the anchor
+    matches beside JAX's, the Bradley-Terry rating with its +-2 sigma band
+    beside JAX's, the walls, the launches, and a cut where ``FLAG_ITERS``
+    is below 16.  Fails on a record whose keys are not JAX's, a kernel call
+    that disagrees with its plain version, an ``s8_mm`` launch or int8
     evaluation in the folded run, or an int8 iteration without ``s8_mm``
     launches (13 a 512-row chunk).  Strength is reported, not gated."""
     if mode not in RECIPE_MODES:
         raise ValueError(f"--recipe {mode}: not one of {sorted(RECIPE_MODES)}")
-    out_dir = os.path.join(ROOT, "build", "recipe", mode)
+    out_dir = os.path.join(ROOT, "build", "recipe",
+                           mode if seed is None else f"{mode}-seed{seed}")
     os.makedirs(out_dir, exist_ok=True)
     jax_train = _jax_doc("train_flagship_gomoku15.json")
     jax_rating = next(r for r in _jax_doc("anchor_evals.json")
@@ -3538,18 +3693,46 @@ def recipe_check(mode: str) -> dict:
             f"the learning rate equals the full run's for the first {same} of the "
             f"cut's {steps} learner steps (total_steps = max(iters * 64, 256))")
     log(f"[recipe] {mode}: knobs " + json.dumps(knobs))
-    res = flagship_run(RECIPE_MODES[mode], out_dir, torch.device("cuda"))
+    res = flagship_run(RECIPE_MODES[mode], out_dir, torch.device("cuda"), until=until,
+                       legs_dir=os.path.join(out_dir, "legs"), controls=controls, seed=seed)
     held = _check_recorded(f"recipe_{mode}", res.pop("kernel_calls"), each=False)
-    summary = recipe_summary(mode, res, jax_train, jax_rating)
+    if controls:
+        held += _check_recorded(f"recipe_{mode}_controls", res.pop("control_calls"),
+                                each=False)
+    bad = _launch_faults(res["inference"], res["launches"]["iterations"], on_card=True)
+    if not res["done"]:
+        summary = recipe_leg_summary(mode, res, jax_train)
+    else:
+        summary = recipe_summary(mode, res, jax_train, jax_rating)
+        bad += [k for k, ok in summary["keys"].items() if not ok]
     summary["signatures"] = len(held)
     log(f"[recipe] {mode} " + json.dumps(summary))
-    with open(os.path.join(out_dir, "recipe.json"), "w") as f:
+    name = "recipe.json" if res["done"] else f"recipe_leg_{res['leg'][1]}.json"
+    with open(os.path.join(out_dir, name), "w") as f:
         json.dump(summary, f, indent=2)
-    bad = [k for k, ok in summary["keys"].items() if not ok]
-    bad += _launch_faults(res["inference"], res["launches"]["iterations"], on_card=True)
     if bad:
         raise AssertionError(f"[recipe] {mode}: {bad}")
     return summary
+
+
+def recipe_leg_summary(mode: str, res: dict, jax_train: dict) -> dict:
+    """A leg before the last: the iterations it ran and their losses,
+    moves and ``grad_norm`` beside JAX's record, the arena series so far
+    beside JAX's at the same depth, walls, launches and the controls."""
+    n, hist = res["iterations"], res["history"]
+    keys = ("loss", "moves", "grad_norm")
+    return {
+        "mode": mode, "inference": res["inference"], "leg": res["leg"], "done": n,
+        "iterations": [{k: h.get(k) for k in ("iteration",) + keys} for h in hist],
+        "jax_iterations": [{k: h.get(k) for k in ("iteration",) + keys}
+                           for h in jax_train["history"][:n]],
+        "arena_series": res["arena_series"],
+        "jax_arena_series": [s for s in jax_train["arena_series"]
+                             if int(s["player"].split("_")[1]) <= n],
+        "controls": res.get("controls"),
+        "walls": {k: round(v, 1) for k, v in res["walls"].items()},
+        "launches": res["launches"],
+    }
 
 
 def schedule_prefix(tool, knobs: dict, full_iters: int) -> tuple:
@@ -3599,6 +3782,7 @@ def recipe_summary(mode: str, res: dict, jax_train: dict, jax_rating: dict) -> d
         "walls": {k: round(v, 1) for k, v in res["walls"].items()},
         "jax_wall_s": jax_train["config"]["wall_s"],
         "launches": res["launches"],
+        "controls": res.get("controls"),
         "keys": {"record": sorted(rec) == sorted(jax_train),
                  "config": sorted(rec["config"]) == sorted(jax_train["config"]),
                  "history": all(set(jax_train["history"][0]) <= set(h)
@@ -4042,9 +4226,12 @@ def main() -> int:
         ab_check(sys.argv[2])
         return 0
     if len(sys.argv) > 2 and sys.argv[1] == "--recipe":
+        args = sys.argv[3:]
+        until = int(args[args.index("--until") + 1]) if "--until" in args else None
+        seed = int(args[args.index("--seed") + 1]) if "--seed" in args else None
         _, smi = phase_device()
         phase_build()
-        recipe_check(sys.argv[2])
+        recipe_check(sys.argv[2], until=until, controls="--controls" in args, seed=seed)
         log(smi)
         return 0
     from alphazero_tpu_torch.core import registry

@@ -14,6 +14,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -334,6 +335,135 @@ def test_recipe_modes_differ_only_in_inference(tmp_path, tiny, monkeypatch, unto
     assert it["int8_builds"] == 1 and it["int8_evals"] > 0
 
 
+_TIMES = {"actor_s", "train_s", "moves_per_s", "host_rss_mb", "device_mem_mb",
+          "device_peak_mb"}
+
+
+def _untimed(history):
+    return [{k: v for k, v in h.items() if k not in _TIMES} for h in history]
+
+
+def test_recipe_legs_equal_one_run(tmp_path, tiny, monkeypatch, untouched):
+    """``chip_smoke.py --recipe MODE --until N``: the tiny recipe (4
+    iterations, an arena every 2) in three legs, stopped after iteration 0,
+    after iteration 2 and run to the end, equals one run bit for bit: the
+    record (history without its times, arena series, Elo table), the final
+    bundle (weights and BatchNorm statistics) and the rating's matches.
+    The legs resume each way a kept net can come back: iteration 0's from
+    the seed, iteration 2's from its bundle (the third leg starts at 3);
+    each held against the sha256 of the bundle the leg before wrote."""
+    _recipe_tiny(tiny, monkeypatch)
+    for k, v in dict(FLAG_ITERS="4", FLAG_EVAL_EVERY="2").items():
+        monkeypatch.setenv(k, v)
+    runs = {}
+    for name, stops in (("one", [None]), ("legs", [1, 3, None])):
+        out_dir = tmp_path / name
+        for until in stops:
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = chip_smoke.flagship_run("folded", str(out_dir), torch.device("cpu"),
+                                              rate_games=2, rate_sims=4, until=until,
+                                              legs_dir=str(out_dir / "legs"))
+            assert res["done"] == (until is None)
+        runs[name] = res
+        with open(out_dir / "flagship_gomoku15", "rb") as f:
+            runs[name + "_bundle"] = f.read()
+    one, legs = runs["one"], runs["legs"]
+    assert legs["leg"] == [3, 4] and one["leg"] == [0, 4]
+    assert _untimed(legs["record"]["history"]) == _untimed(one["record"]["history"])
+    assert len(one["record"]["history"]) == 4 and "loss" in one["record"]["history"][-1]
+    for key in ("arena_series", "elo"):
+        assert legs["record"][key] == one["record"][key], key
+    assert [s["opponent"] for s in one["record"]["arena_series"]] == [
+        "iter_0", "iter_0", "iter_2"]
+    assert runs["legs_bundle"] == runs["one_bundle"]
+    assert legs["rating"]["matches"] == one["rating"]["matches"]
+    assert legs["rating"]["bt_rating"] == one["rating"]["bt_rating"]
+    assert len(legs["launches"]["iterations"]) == 4
+    saved = sorted(os.listdir(tmp_path / "legs" / "legs"))
+    assert saved == ["elo.json", "iter_0", "iter_0.json", "iter_2", "iter_2.json",
+                     "legs.json"]
+
+
+def test_recipe_leg_refuses_other_knobs(tmp_path, tiny, monkeypatch, untouched):
+    """A leg resumes only the run its knobs describe, and only forward."""
+    _recipe_tiny(tiny, monkeypatch)
+    monkeypatch.setenv("FLAG_ITERS", "2")
+    legs = str(tmp_path / "legs")
+    with contextlib.redirect_stdout(io.StringIO()):
+        chip_smoke.flagship_run("folded", str(tmp_path), torch.device("cpu"),
+                                rate_games=0, until=1, legs_dir=legs)
+        with pytest.raises(ValueError, match="done"):
+            chip_smoke.flagship_run("folded", str(tmp_path), torch.device("cpu"),
+                                    rate_games=0, until=1, legs_dir=legs)
+        monkeypatch.setenv("FLAG_GAMES", "2")
+        with pytest.raises(ValueError, match="ran at"):
+            chip_smoke.flagship_run("folded", str(tmp_path), torch.device("cpu"),
+                                    rate_games=0, legs_dir=legs)
+
+
+def test_recipe_seed_control_changes_only_the_seed(tmp_path, tiny, monkeypatch, untouched):
+    """``--seed S`` replaces ``PipelineConfig.seed`` and nothing else (the
+    checkpoint directory lies beside each run's output), and the run ends
+    with another net."""
+    _recipe_tiny(tiny, monkeypatch)
+    runs = {}
+    for seed in (None, 1):
+        with contextlib.redirect_stdout(io.StringIO()):
+            runs[seed] = chip_smoke.flagship_run("folded", str(tmp_path / str(seed)),
+                                                 torch.device("cpu"), rate_games=0, seed=seed)
+    base, other = runs[None]["config"], runs[1]["config"]
+    assert base.seed == 0 and other == dataclasses.replace(
+        base, seed=1, checkpoint_dir=other.checkpoint_dir)
+    assert runs[None]["history"][0]["moves"] > 0
+    with open(tmp_path / "None" / "flagship_gomoku15", "rb") as a, \
+            open(tmp_path / "1" / "flagship_gomoku15", "rb") as b:
+        assert a.read() != b.read()
+
+
+def test_recipe_arenas_evaluate_the_raw_net(tmp_path, tiny, monkeypatch, untouched):
+    """``train_flagship``'s and ``train_demo``'s arenas evaluate their nets
+    as JAX's tools do (``model.apply``: ``make_raw_eval_fn``), bit for bit,
+    and not through the BN-folded bf16 net."""
+    from alphazero_tpu_torch.models.resnet import make_inference_eval_fn, make_raw_eval_fn
+    from alphazero_tpu_torch.tools import train_demo as demo
+    from alphazero_tpu_torch.training import pipeline
+
+    seen, pipes = [], []
+    real, real_init = arena.play_match, pipeline.Pipeline.__init__
+
+    def spy(env, eval_a, eval_b, *a, **kw):
+        seen.append(eval_a)
+        return real(env, eval_a, eval_b, *a, **kw)
+
+    def init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        pipes.append(self)
+
+    monkeypatch.setattr(arena, "play_match", spy)
+    monkeypatch.setattr(pipeline.Pipeline, "__init__", init)
+    monkeypatch.setattr(arena.ArenaConfig, "__init__", _short_arena(arena.ArenaConfig.__init__))
+    tiny(train_flagship, 5)
+    tiny(demo, 5)
+    monkeypatch.setattr(demo, "ARENA_GAMES", 2)
+    for k, v in dict(FLAG_ITERS="1", FLAG_GAMES="4", FLAG_SIMS="8", FLAG_EVAL_GAMES="2",
+                     FLAG_EVAL_SIMS="4", DEMO_ITERS="1", DEMO_GAMES="4", DEMO_SIMS="8",
+                     DEMO_BOARD="5").items():
+        monkeypatch.setenv(k, v)
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_flagship.main(["--device", "cpu", "--output", str(tmp_path / "f.json")])
+        demo.main(["--device", "cpu", "--output", str(tmp_path / "d.json")])
+    assert len(seen) == len(pipes) == 2
+    obs = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 2, size=(8, 11, 5, 5)).astype(np.float32))
+    for eval_fn, pipe in zip(seen, pipes):
+        net = pipe.state.module  # after training: the net both arenas played
+        got, want = eval_fn(obs), make_raw_eval_fn(net)(obs)
+        folded = make_inference_eval_fn(net)(obs)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert not all(torch.equal(g, f) for g, f in zip(got, folded))
+
+
 @pytest.mark.parametrize("iters, prefix", [(4, (256, 256)), (8, (501, 512)),
                                            (16, (1024, 1024))])
 def test_cut_recipe_shares_the_full_runs_schedule(iters, prefix):
@@ -573,3 +703,32 @@ def test_fuzz_renju_counts_equal_jax(n_boards, size, seed, monkeypatch, capsys):
     ours = capsys.readouterr().out
     assert ours == theirs
     assert res["cells"] > 0 and res["boards"] == n_boards
+
+
+def test_smoke_records_phase_stamps_each_record_once(monkeypatch):
+    """``chip_smoke.phase_records`` compares the native encoder's bytes with
+    ``json``'s; records without a timestamp read the clock at each
+    encoding, so the phase stamps them once and a clock that ticks between
+    the two encodings does not split them."""
+    from types import SimpleNamespace
+
+    import time
+
+    from alphazero_tpu_torch import native
+    from alphazero_tpu_torch.games.gomoku import GomokuEnv
+
+    assert native.get_azrecord() is not None, "g++ could not build the encoder"
+    env = GomokuEnv(board_size=7)
+    T, B = 3, 4
+    rng = np.random.RandomState(0)
+    out = SimpleNamespace(
+        actions=torch.from_numpy(rng.randint(0, 49, (T, B)).astype(np.int32)),
+        policies=torch.from_numpy(rng.dirichlet(np.ones(49), (T, B)).astype(np.float32)),
+        root_values=torch.from_numpy(rng.uniform(-1, 1, (T, B)).astype(np.float32)),
+        active=torch.ones(T, B, dtype=torch.bool),
+        winner=torch.tensor([0, 1, -1, 0], dtype=torch.int32))
+    ticks = iter(range(10 ** 6))
+    monkeypatch.setattr(time, "strftime",
+                        lambda fmt, *a: "2026-01-01T00:00:%02d" % (next(ticks) % 60))
+    res = chip_smoke.phase_records(env, out, games=B)
+    assert res["bytes_equal"] and res["records"] == B
