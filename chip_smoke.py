@@ -198,13 +198,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      actors (slice 14); the records' keys against the JAX records in docs/,
      no s8_mm launch in the folded recipe, the kernel calls against their
      plain versions;
- 17. summary: one JSON line of kernels, then the final status line.
+ 17. [bench] (slice 16): bench_gpu.py's main in this process, cut in depth
+     (printed): B=1024, 64 simulations (800), 1 timed move a rep (16),
+     2 reps (3 to 6); six runs: the int8 executor in mode "both",
+     BENCH_INT8=0 (the folded bf16 net), BENCH_REUSE=1, BENCH_EVAL=stub,
+     Go 9x9 and chess (B=256, printed); each run's JSON keys equal to
+     bench.py's for its mode (bench.py:291-325), a positive value, the
+     midgame and sustained regimes present where the mode has them,
+     gather_rows launched, s8_mm launched exactly 13 times a 512-row chunk
+     of the evaluated batches in the int8 runs and never in the folded and
+     stub runs, and every distinct kernel call held against its plain
+     version;
+ 18. summary: one JSON line of kernels, then the final status line.
 
+    python3 chip_smoke.py --bench     # [bench] alone (device, build, bench)
+    python3 chip_smoke.py --bench-run # bench_gpu.py at the BENCH_* given
     python3 chip_smoke.py --ab MODE   # one A/B of tools/ab_arena.py alone
     python3 chip_smoke.py --recipe flagship-folded|flagship-int8 [--until N]
         [--controls] [--seed S]
 
-runs the device and build phases, then one A/B at the ``AB_*`` knobs'
+``--bench-run`` runs ``bench_gpu.main`` in this process at the ``BENCH_*``
+environment the caller set (the defaults where none is), its output
+unchanged, then prints the run's ``gather_rows`` and ``s8_mm`` launches
+(``bench_run``); no build phase runs first, so bench_gpu.py's ``compile``
+includes the first-use build of the kernels.  ``--ab`` runs the device
+and build phases, then one A/B at the ``AB_*`` knobs'
 size under the routing check, with every kernel call held against its
 plain version (``ab_check``): MODE ``int8`` or ``reuse`` is the tool's
 own; ``null`` and ``sides`` are controls of the int8 A/B.  ``--recipe``
@@ -3997,6 +4015,176 @@ def _check_recorded(tag: str, rec: "_KernelCalls", each: bool = True) -> list:
     return held
 
 
+# bench.py's JSON keys (bench.py:291-325): the first five always, the
+# reference pair with tools/parity/reference_baseline.json (committed), the
+# midgame trio and its reference ratio in mode "both", the sustained trio in
+# "both" and "sustained" unless tree reuse is on.
+BENCH_KEYS = {
+    "base": {"metric", "value", "unit", "vs_baseline", "reps",
+             "reference_measured_moves_per_s", "vs_reference_measured"},
+    "midgame": {"midgame", "midgame_vs_baseline", "midgame_reps",
+                "midgame_vs_reference_measured"},
+    "sustained": {"sustained", "sustained_games_per_min", "sustained_reps"},
+}
+
+
+def bench_keys(mode: str, reuse: bool) -> set:
+    keys = set(BENCH_KEYS["base"])
+    if mode == "both":
+        keys |= BENCH_KEYS["midgame"]
+    if mode in ("both", "sustained") and not reuse:
+        keys |= BENCH_KEYS["sustained"]
+    return keys
+
+
+@contextlib.contextmanager
+def _int8_batches():
+    """While active, the batch sizes the int8 executor evaluates
+    (``models/quant._chunked_int8_eval``), in a list."""
+    from alphazero_tpu_torch.models import quant
+
+    batches, orig = [], quant._chunked_int8_eval
+
+    def counted(qp, obs, *a, **kw):
+        batches.append(obs.shape[0])
+        return orig(qp, obs, *a, **kw)
+
+    quant._chunked_int8_eval = counted
+    try:
+        yield batches
+    finally:
+        quant._chunked_int8_eval = orig
+
+
+def _bench_s8_convs(knobs: dict) -> int:
+    """s8_mm launches a chunk of a bench_gpu.py run at ``knobs`` (its
+    BENCH_* values): the 6-block trunk's 13 convs, 15 with int8 heads; 0
+    without the int8 executor."""
+    from alphazero_tpu_torch import production
+    from alphazero_tpu_torch.models.resnet import ResNetConfig
+
+    if knobs.get("BENCH_EVAL", "") == "stub" or knobs.get("BENCH_INT8", "1") != "1":
+        return 0
+    heads = knobs.get("BENCH_HEADS", production.INT8_HEADS)
+    return 1 + 2 * ResNetConfig().num_blocks + 2 * (heads == "int8")
+
+
+def _bench_s8_expected(batches, knobs: dict) -> int:
+    """The s8_mm launches of such a run that evaluated ``batches``."""
+    from alphazero_tpu_torch import production
+
+    chunk = int(knobs.get("BENCH_CHUNK", str(production.INT8_CHUNK)))
+    return _s8_launches_expected(batches, _bench_s8_convs(knobs), chunk)
+
+
+def phase_bench() -> dict:
+    """[bench]: ``bench_gpu.main`` in this process, once a run, with the
+    ``BENCH_*`` environment set for the run (every other ``BENCH_*`` unset)
+    and its stdout and stderr captured and printed.  Counts each run's
+    gather_rows and s8_mm launches and the batches the int8 executor
+    evaluated, records the kernel calls (``_KernelCalls``), and fails on a
+    JSON line whose keys are not bench.py's for the run's mode, a value that
+    is not positive, a missing midgame or sustained regime, s8_mm launches
+    off 13 a 512-row chunk in an int8 run or any in the folded and stub
+    runs, no gather_rows launch, or a recorded call that differs from its
+    plain version."""
+    import io
+
+    import bench_gpu
+    from alphazero_tpu_torch.ops.gather_rows import gather_rows
+    from alphazero_tpu_torch.ops.s8_mm import s8_mm
+
+    t_phase = time.perf_counter()
+    cut = dict(BENCH_BATCH="1024", BENCH_SIMS="64", BENCH_MOVES="1",
+               BENCH_REPS="2", BENCH_MAX_REPS="2")
+    small = dict(BENCH_BATCH="256")
+    runs = [("int8", {}), ("folded", {"BENCH_INT8": "0"}), ("reuse", {"BENCH_REUSE": "1"}),
+            ("stub", {"BENCH_EVAL": "stub"}),
+            ("go9", dict(small, BENCH_GAME="go", BENCH_BOARD="9")),
+            ("chess", dict(small, BENCH_GAME="chess", BENCH_BOARD="8"))]
+    log("[bench] depth cut: BENCH_SIMS 800 -> 64, BENCH_MOVES 16 -> 1, "
+        "BENCH_REPS 3 -> 2, BENCH_MAX_REPS 6 -> 2; B=1024, go9 and chess B=256")
+    res = {}
+    for tag, knobs in runs:
+        env = dict(cut, **knobs)
+        saved = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+        out, err = io.StringIO(), io.StringIO()
+        gather_rows.launches = s8_mm.launches = 0
+        for k in saved:
+            del os.environ[k]
+        os.environ.update(env)
+        t0 = time.perf_counter()
+        try:
+            with _int8_batches() as batches, _KernelCalls() as rec, \
+                    contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = bench_gpu.main()
+        finally:
+            for k in env:
+                del os.environ[k]
+            os.environ.update(saved)
+        wall = time.perf_counter() - t0
+        launches = {"gather_rows": gather_rows.launches, "s8_mm": s8_mm.launches}
+        for ln in err.getvalue().splitlines():
+            log(f"[bench] {tag} stderr: {ln}")
+        lines = out.getvalue().strip().splitlines()
+        log(f"[bench] {tag} stdout: {out.getvalue().strip()}")
+        expected = _bench_s8_expected(batches, env)
+        held = _check_recorded(f"bench_{tag}", rec, each=False)
+        bad = []
+        if rc != 0 or len(lines) != 1:
+            bad.append(f"exit {rc}, {len(lines)} stdout lines")
+        line = json.loads(lines[-1]) if lines else {}
+        reuse = env.get("BENCH_REUSE") == "1"
+        keys = bench_keys("both", reuse)
+        if set(line) != keys:
+            bad.append(f"keys {sorted(set(line) ^ keys)} differ from bench.py's")
+        if not (line.get("value", 0) > 0 and line.get("midgame", 0) > 0):
+            bad.append("a moves/s that is not positive")
+        if not reuse and not line.get("sustained", 0) > 0:
+            bad.append("no sustained regime")
+        if launches["gather_rows"] <= 0:
+            bad.append("no gather_rows launch")
+        int8 = _bench_s8_convs(env) > 0
+        if launches["s8_mm"] != expected or (int8 and expected <= 0):
+            bad.append(f"s8_mm launches {launches['s8_mm']}, expected {expected}")
+        res[tag] = {"knobs": env, "line": line, "launches": launches,
+                    "s8_mm_expected": expected, "int8_evaluations": len(batches),
+                    "signatures": len(held), "wall_s": round(wall, 1)}
+        log(f"[bench] {tag} " + json.dumps({k: v for k, v in res[tag].items()
+                                            if k != "line"}))
+        if bad:
+            raise AssertionError(f"[bench] {tag}: {bad}")
+    log(f"[bench] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+def bench_run() -> int:
+    """``--bench-run``: ``bench_gpu.main`` at the caller's ``BENCH_*``
+    environment, then one line of the run's kernel launches; fails unless
+    ``s8_mm`` ran exactly once a conv a chunk of the batches the int8
+    executor evaluated (none without it) and ``gather_rows`` ran.  Reads the
+    wrappers' counters only: the timed moves run as ``python3 bench_gpu.py``
+    runs them."""
+    import bench_gpu
+    from alphazero_tpu_torch.ops.gather_rows import gather_rows
+    from alphazero_tpu_torch.ops.s8_mm import s8_mm
+
+    gather_rows.launches = s8_mm.launches = 0
+    t0 = time.perf_counter()
+    with _int8_batches() as batches:
+        rc = bench_gpu.main()
+    knobs = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+    expected = _bench_s8_expected(batches, knobs)
+    sys.stdout.flush()
+    res = {"gather_rows": gather_rows.launches, "s8_mm": s8_mm.launches,
+           "s8_mm_expected": expected, "int8_evaluations": len(batches),
+           "wall_s": round(time.perf_counter() - t0, 1)}
+    print("[bench-run] launches " + json.dumps(res), file=sys.stderr, flush=True)
+    if rc != 0 or s8_mm.launches != expected or gather_rows.launches <= 0:
+        raise AssertionError(f"[bench-run] exit {rc}, launches {res}")
+    return rc
+
+
 def phase_train(env, model_path) -> dict:
     """The training slice at the flagship width (6x64 SE-ResNet, 15x15).
 
@@ -4225,6 +4413,14 @@ def main() -> int:
         phase_build()
         ab_check(sys.argv[2])
         return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--bench-run":
+        return bench_run()
+    if len(sys.argv) > 1 and sys.argv[1] == "--bench":
+        _, smi = phase_device()
+        phase_build()
+        phase_bench()
+        log(smi)
+        return 0
     if len(sys.argv) > 2 and sys.argv[1] == "--recipe":
         args = sys.argv[3:]
         until = int(args[args.index("--until") + 1]) if "--until" in args else None
@@ -4325,6 +4521,7 @@ def main() -> int:
     slice12 = phase_slice12(env, int8_eval, convs, model_path)
     walls.update(slice12["walls"])
     timed("tools", phase_tools, model_path)
+    timed("bench", phase_bench)
 
     head = rows[0]  # child stats: the most rows of any gather per level
     kernels = [{

@@ -68,7 +68,8 @@ NAMES_ALLOWED = {
 
 # Script (relative to the repo) -> its counterpart where it is not the
 # same name under alphazero_tpu_torch/tools|examples/.
-MOVED = {"tools/anchor_eval.py": "alphazero_tpu_torch/scripts/anchor_eval.py"}
+MOVED = {"tools/anchor_eval.py": "alphazero_tpu_torch/scripts/anchor_eval.py",
+         "bench.py": "bench_gpu.py"}
 
 # Script glob -> why it has no counterpart.
 SCRIPTS_ALLOWED = {
@@ -77,7 +78,6 @@ SCRIPTS_ALLOWED = {
     "tools/parse_trace.py": "reads TPU profiler traces (ROADMAP.md section 1 item 6)",
     "tools/parity/*": "the C++ reference's parity build (ROADMAP.md section 1 "
                       "item 6); the port reads its dumps",
-    "bench.py": "its counterpart bench_gpu.py comes with the GPU benchmark (ROADMAP.md queue 1)",
 }
 
 

@@ -1,5 +1,5 @@
-"""The port stands alone: no module of ``alphazero_tpu_torch/`` and not
-``chip_smoke.py`` imports jax, flax or the JAX package.
+"""The port stands alone: no module of ``alphazero_tpu_torch/``, not
+``chip_smoke.py`` and not ``bench_gpu.py`` imports jax, flax or the JAX package.
 
 This reads the sources (an AST scan) rather than ``sys.modules``, which
 holds JAX in any process where something else imported it."""
@@ -10,7 +10,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "alphazero_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "bench_gpu.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "alphazero_tpu")
 
 
