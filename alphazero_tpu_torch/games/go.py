@@ -45,6 +45,7 @@ from alphazero_tpu_torch.core import zobrist
 from alphazero_tpu_torch.core.types import (
     GameType, result_from_winner, where_lanes,
 )
+from alphazero_tpu_torch.utils import telemetry
 
 _STEPS4 = ((-1, 0), (1, 0), (0, -1), (0, 1))
 # Labelling: pointer jumps a round, and rounds between two tests of the
@@ -112,7 +113,9 @@ def group_labels(stones: torch.Tensor) -> torch.Tensor:
         for _ in range(_CHECK_EVERY - 1):
             parent = one_round(parent)
         prev, parent = parent, one_round(parent)
-        if torch.equal(prev, parent):
+        with telemetry.host_sync("go.group_labels"):
+            fixed = torch.equal(prev, parent)
+        if fixed:
             return parent[:, :S].contiguous()
 
 
@@ -341,8 +344,9 @@ class GoEnv:
         alive = torch.zeros((B, S + 1), dtype=torch.int64, device=dev)
         alive.scatter_add_(1, opp_ids, breathing.long())
         captured = (opp_ids < S) & (torch.gather(alive, 1, opp_ids) == 0) & place[:, None]
-        board2 = torch.where(captured, torch.tensor(-1, dtype=torch.int8, device=dev),
-                             board1)
+        with telemetry.host_sync("go.step"):  # a blocking host-to-device copy
+            hole = torch.tensor(-1, dtype=torch.int8, device=dev)
+        board2 = torch.where(captured, hole, board1)
         ccount = captured.sum(1)
 
         # Additive hash: + the placed key - the captured keys, per lane.

@@ -40,6 +40,7 @@ import torch
 
 from alphazero_tpu_torch.core.types import terminal_value
 from alphazero_tpu_torch.ops.gather_rows import gather_rows, gather_rows_many
+from alphazero_tpu_torch.utils import telemetry
 
 # eval_fn: (obs [B, C, H, W], to_play [B] i32) -> (logits [B, A], value [B])
 EvalFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -226,7 +227,8 @@ def _root_prior(env, root_states, root_logits, config: MCTSConfig,
     drawn from ``generator`` (or the device's default generator when none is
     given, as the JAX search always noises the root) where ``noise`` and
     ``dirichlet_epsilon > 0``."""
-    legal = env.legal_mask(root_states)
+    with telemetry.span("env.legal"):
+        legal = env.legal_mask(root_states)
     prior = masked_softmax(root_logits.float(), legal)
     if noise and config.dirichlet_epsilon > 0:
         alpha = torch.full(prior.shape, config.dirichlet_alpha,
@@ -242,8 +244,9 @@ def _root_prior(env, root_states, root_logits, config: MCTSConfig,
 
 def _root_terminal(env, root_states, root_value):
     """(terminal flag, terminal value, root value) of the roots."""
-    term = env.terminal_flag(root_states)
-    tval = terminal_value(env.winner(root_states), env.to_play(root_states))
+    with telemetry.span("env.result"):
+        term = env.terminal_flag(root_states)
+        tval = terminal_value(env.winner(root_states), env.to_play(root_states))
     return term, tval, torch.where(term, tval, root_value.float())
 
 
@@ -375,7 +378,12 @@ def _select_wave(tree: Tree, config: MCTSConfig, W: int) -> _WaveSelect:
     term_arena = _col(tree.terminal)
     krange = torch.arange(K, device=dev)
     depth = 1
-    while depth < config.max_depth and bool((~done).any()):
+    while depth < config.max_depth:
+        more = (~done).any()
+        with telemetry.host_sync("search.select"):
+            more = bool(more)
+        if not more:
+            break
         live = ~done
         # The rows every walker reads at its node, in one launch.
         term_here, prior_row, child_row, nstats = gather_rows_many(
@@ -539,7 +547,12 @@ def _backprop_td(tree: Tree, start: torch.Tensor, leaf_val: torch.Tensor,
     edge_hit = torch.zeros((B,), dtype=torch.bool, device=dev)
     parent_col = _col(tree.parent)
     stats_cols = (_col(tree.value_sum), _col(tree.visits))
-    while bool(active.any()):
+    while True:
+        more = active.any()
+        with telemetry.host_sync("search.backprop_td"):
+            more = bool(more)
+        if not more:
+            break
         tree.visits.scatter_add_(1, node[:, None], active.to(torch.int32)[:, None])
         tree.value_sum.scatter_add_(1, node[:, None],
                                     torch.where(active, val, 0.0)[:, None])
@@ -576,110 +589,127 @@ def _simulate_wave(env, eval_fn: EvalFn, tree: Tree, base: int,
     W = config.wave_size
     dev = tree.visits.device
 
-    sel = _select_wave(tree, config, W)
-    leafs, actions = sel.leaf, sel.action
-    expand0 = ~sel.leaf_terminal
-    lengths, slots = sel.length, sel.slot
-    from_root = slots < 0
+    with telemetry.span("search.select"):
+        sel = _select_wave(tree, config, W)
+        leafs, actions = sel.leaf, sel.action
+        expand0 = ~sel.leaf_terminal
+        lengths, slots = sel.length, sel.slot
+        from_root = slots < 0
 
-    # --- merge duplicate expansions (same leaf, same edge) ---
-    wr = torch.arange(W, device=dev)
-    same = ((leafs[:, :, None] == leafs[:, None, :])
-            & (actions[:, :, None] == actions[:, None, :])
-            & expand0[:, :, None] & expand0[:, None, :]
-            & (wr[None, :, None] >= wr[None, None, :]))
-    first = same.to(torch.int32).argmax(dim=2)  # first True wins
-    first = torch.where(expand0, first, wr[None, :])
-    expand = expand0 & (first == wr[None, :])
+        # --- merge duplicate expansions (same leaf, same edge) ---
+        wr = torch.arange(W, device=dev)
+        same = ((leafs[:, :, None] == leafs[:, None, :])
+                & (actions[:, :, None] == actions[:, None, :])
+                & expand0[:, :, None] & expand0[:, None, :]
+                & (wr[None, :, None] >= wr[None, None, :]))
+        first = same.to(torch.int32).argmax(dim=2)  # first True wins
+        first = torch.where(expand0, first, wr[None, :])
+        expand = expand0 & (first == wr[None, :])
+    telemetry.count("search.rows", B * W)
+    telemetry.count_device("search.new_nodes", expand)
 
     # --- batched leaf pipeline over B*W ---
-    # The leaves' state rows and terminal values, in one launch (the
-    # installs and links below write neither at an existing node).
-    *rows, leaf_tval = gather_rows_many(tree.states + (_col(tree.tvalue),), leafs)
-    rows = [r.reshape(B * W, -1) for r in rows]
-    leaf_state = env.from_arena_rows(*rows)
-    child_state = env.step(leaf_state, actions.reshape(-1))
-    obs = env.observation(child_state)
-    child_to_play = env.to_play(child_state)
-    logits, value = eval_fn(obs, child_to_play)
-    legal = env.legal_mask(child_state)
-    if config.parity_mode and K == legal.shape[-1]:
-        # Identity slots: slot k is action k, the reference's child order.
-        topv = masked_softmax(logits.float(), legal)
-        topa = torch.arange(K, device=dev).expand(topv.shape)
-    else:
-        topv, topa = _topk_masked_prior(logits, legal, K)
-    child_term = env.terminal_flag(child_state)
-    child_tval = terminal_value(env.winner(child_state), child_to_play)
+    with telemetry.span("search.leaf"):
+        # The leaves' state rows and terminal values, in one launch (the
+        # installs and links below write neither at an existing node).
+        *rows, leaf_tval = gather_rows_many(tree.states + (_col(tree.tvalue),),
+                                            leafs)
+        rows = [r.reshape(B * W, -1) for r in rows]
+        leaf_state = env.from_arena_rows(*rows)
+        with telemetry.span("env.step"):
+            child_state = env.step(leaf_state, actions.reshape(-1))
+        with telemetry.span("env.observe"):
+            obs = env.observation(child_state)
+            child_to_play = env.to_play(child_state)
+    logits, value = _evaluate(eval_fn, obs, child_to_play)
 
-    def bw(x):
-        return x.reshape((B, W) + x.shape[1:])
+    with telemetry.span("search.expand"):
+        with telemetry.span("env.legal"):
+            legal = env.legal_mask(child_state)
+        if config.parity_mode and K == legal.shape[-1]:
+            # Identity slots: slot k is action k, the reference's child order.
+            topv = masked_softmax(logits.float(), legal)
+            topa = torch.arange(K, device=dev).expand(topv.shape)
+        else:
+            topv, topa = _topk_masked_prior(logits, legal, K)
+        with telemetry.span("env.result"):
+            child_term = env.terminal_flag(child_state)
+            child_tval = terminal_value(env.winner(child_state), child_to_play)
 
-    topv_w, topa_w = bw(topv), bw(topa)
-    cterm_w, ctval_w, value_w = bw(child_term), bw(child_tval), bw(value.float())
+        def bw(x):
+            return x.reshape((B, W) + x.shape[1:])
 
-    # --- transposition table: consult before using the evaluator's output,
-    # store on a miss ---
-    if tree.tt is not None:
-        h = bw(env.position_hash(child_state))
-        value_w, topv_w, topa_w = _tt_process(
-            tree.tt, h, expand0 & ~cterm_w, expand & ~cterm_w,
-            value_w, topv_w, topa_w)
+        topv_w, topa_w = bw(topv), bw(topa)
+        cterm_w, ctval_w, value_w = bw(child_term), bw(child_tval), bw(value.float())
 
-    # --- install W rows per arena (block writes at scalar offset base) ---
-    for arena, row in zip(tree.states, env.arena_rows(child_state)):
-        _install(arena, base, bw(row), expand)
-    _install(tree.prior, base, topv_w, expand)
-    _install(tree.cchild, base, torch.where(topv_w > 0, -1, -2), expand)
-    _install(tree.caction, base, torch.where(topv_w > 0, topa_w, -1), expand)
-    _install(tree.parent, base, torch.where(expand, leafs, -1), expand)
-    _install(tree.terminal, base, cterm_w, expand)
-    _install(tree.tvalue, base, ctval_w, expand)
-    _install(tree.depth, base, lengths + 1, expand)
-    _install(tree.paction, base, torch.where(expand, actions, -1), expand)
-    _install(tree.pslot, base, torch.where(expand, slots, -1), expand)
+        # --- transposition table: consult before using the evaluator's
+        # output, store on a miss ---
+        if tree.tt is not None:
+            h = bw(env.position_hash(child_state))
+            value_w, topv_w, topa_w = _tt_process(
+                tree.tt, h, expand0 & ~cterm_w, expand & ~cterm_w,
+                value_w, topv_w, topa_w)
 
-    # --- links: root edges and deep (leaf, slot) edges to base + w ---
-    new_ids = (base + wr)[None, :]
-    _link(tree.root_child, sel.root_action, expand & from_root, new_ids)
-    deep_target = leafs.long() * K + slots.clamp(min=0)
-    _link(tree.cchild.view(B, N * K), deep_target, expand & ~from_root, new_ids)
+        # --- install W rows per arena (block writes at scalar offset base) ---
+        for arena, row in zip(tree.states, env.arena_rows(child_state)):
+            _install(arena, base, bw(row), expand)
+        _install(tree.prior, base, topv_w, expand)
+        _install(tree.cchild, base, torch.where(topv_w > 0, -1, -2), expand)
+        _install(tree.caction, base, torch.where(topv_w > 0, topa_w, -1), expand)
+        _install(tree.parent, base, torch.where(expand, leafs, -1), expand)
+        _install(tree.terminal, base, cterm_w, expand)
+        _install(tree.tvalue, base, ctval_w, expand)
+        _install(tree.depth, base, lengths + 1, expand)
+        _install(tree.paction, base, torch.where(expand, actions, -1), expand)
+        _install(tree.pslot, base, torch.where(expand, slots, -1), expand)
 
-    leaf_val = torch.where(~expand0, leaf_tval[..., 0],
-                           torch.where(cterm_w, ctval_w, value_w))
-    if config.td_lambda is not None:  # W == 1 (check_config)
-        start = torch.where(expand[:, 0], base, leafs[:, 0].long())
-        edge_val, edge_hit = _backprop_td(tree, start, leaf_val[:, 0], config)
-        ra = sel.root_action
-        tree.root_evisits.scatter_add_(1, ra, edge_hit.to(torch.int32)[:, None])
-        tree.root_evalue += torch.zeros_like(tree.root_evalue).scatter_add(
-            1, ra, torch.where(edge_hit, edge_val, 0.0)[:, None])
-        return tree
+        # --- links: root edges and deep (leaf, slot) edges to base + w ---
+        new_ids = (base + wr)[None, :]
+        _link(tree.root_child, sel.root_action, expand & from_root, new_ids)
+        deep_target = leafs.long() * K + slots.clamp(min=0)
+        _link(tree.cchild.view(B, N * K), deep_target, expand & ~from_root,
+              new_ids)
 
-    # --- combined backprop ---
-    L = lengths + expand0.to(torch.int32)  # backprop start depth
-    sgn = torch.where(L % 2 == 0, leaf_val, -leaf_val)
-    D = sel.path_nodes.shape[1] // W
-    path_sgn = (sel.path_signs.reshape(B, W, D) * sgn[:, :, None]).reshape(B, -1)
-    zeros = torch.zeros((B, N), device=dev)
-    vis_add = zeros.scatter_add(1, sel.path_nodes, sel.path_signs.abs())
-    val_add = zeros.scatter_add(1, sel.path_nodes, path_sgn)
-    tree.visits += vis_add.to(torch.int32)
-    tree.value_sum += val_add
+    with telemetry.span("search.backup"):
+        leaf_val = torch.where(~expand0, leaf_tval[..., 0],
+                               torch.where(cterm_w, ctval_w, value_w))
+        if config.td_lambda is not None:  # W == 1 (check_config)
+            start = torch.where(expand[:, 0], base, leafs[:, 0].long())
+            edge_val, edge_hit = _backprop_td(tree, start, leaf_val[:, 0],
+                                              config)
+            ra = sel.root_action
+            tree.root_evisits.scatter_add_(1, ra,
+                                           edge_hit.to(torch.int32)[:, None])
+            tree.root_evalue += torch.zeros_like(tree.root_evalue).scatter_add(
+                1, ra, torch.where(edge_hit, edge_val, 0.0)[:, None])
+            return tree
 
-    # New-node stats: duplicates redirect onto the canonical walker's node.
-    contrib = (first[:, :, None] == wr[None, None, :]) & expand0[:, :, None]
-    tree.visits[:, base:base + W] += contrib.sum(dim=1).to(torch.int32)
-    tree.value_sum[:, base:base + W] += torch.where(
-        contrib, leaf_val[:, :, None], 0.0).sum(dim=1)
+        # --- combined backprop ---
+        L = lengths + expand0.to(torch.int32)  # backprop start depth
+        sgn = torch.where(L % 2 == 0, leaf_val, -leaf_val)
+        D = sel.path_nodes.shape[1] // W
+        path_sgn = (sel.path_signs.reshape(B, W, D)
+                    * sgn[:, :, None]).reshape(B, -1)
+        zeros = torch.zeros((B, N), device=dev)
+        vis_add = zeros.scatter_add(1, sel.path_nodes, sel.path_signs.abs())
+        val_add = zeros.scatter_add(1, sel.path_nodes, path_sgn)
+        tree.visits += vis_add.to(torch.int32)
+        tree.value_sum += val_add
 
-    # --- root edge stats (child-perspective sums; child at depth 1) ---
-    backed = (lengths >= 1) | (expand0 & from_root)
-    sign1 = torch.where(L % 2 == 1, leaf_val, -leaf_val)
-    tree.root_evisits.scatter_add_(1, sel.root_action, backed.to(torch.int32))
-    ev_add = torch.zeros_like(tree.root_evalue).scatter_add(
-        1, sel.root_action, torch.where(backed, sign1, 0.0))
-    tree.root_evalue += ev_add
+        # New-node stats: duplicates redirect onto the canonical walker's node.
+        contrib = (first[:, :, None] == wr[None, None, :]) & expand0[:, :, None]
+        tree.visits[:, base:base + W] += contrib.sum(dim=1).to(torch.int32)
+        tree.value_sum[:, base:base + W] += torch.where(
+            contrib, leaf_val[:, :, None], 0.0).sum(dim=1)
+
+        # --- root edge stats (child-perspective sums; child at depth 1) ---
+        backed = (lengths >= 1) | (expand0 & from_root)
+        sign1 = torch.where(L % 2 == 1, leaf_val, -leaf_val)
+        tree.root_evisits.scatter_add_(1, sel.root_action,
+                                       backed.to(torch.int32))
+        ev_add = torch.zeros_like(tree.root_evalue).scatter_add(
+            1, sel.root_action, torch.where(backed, sign1, 0.0))
+        tree.root_evalue += ev_add
     return tree
 
 
@@ -691,8 +721,19 @@ def _finalize(tree: Tree) -> SearchOutput:
                         root_value=root_value, tree=tree)
 
 
+def _evaluate(eval_fn: EvalFn, obs, to_play):
+    """``eval_fn`` on one batch, in the ``eval`` span, its rows counted in
+    ``eval.positions``."""
+    telemetry.count("eval.positions", obs.shape[0])
+    with telemetry.span("eval"):
+        return eval_fn(obs, to_play)
+
+
 def _evaluate_roots(env, eval_fn: EvalFn, root_states):
-    return eval_fn(env.observation(root_states), env.to_play(root_states))
+    with telemetry.span("env.observe"):
+        obs = env.observation(root_states)
+        to_play = env.to_play(root_states)
+    return _evaluate(eval_fn, obs, to_play)
 
 
 def _run_waves(env, eval_fn: EvalFn, tree: Tree, start: int, sims: int,
@@ -701,7 +742,8 @@ def _run_waves(env, eval_fn: EvalFn, tree: Tree, start: int, sims: int,
     ``start``."""
     W = config.wave_size
     for t in range(sims // W):
-        tree = _simulate_wave(env, eval_fn, tree, start + t * W, config)
+        with telemetry.span("search.wave"):
+            tree = _simulate_wave(env, eval_fn, tree, start + t * W, config)
     return tree
 
 
@@ -714,9 +756,10 @@ def search(env, eval_fn: EvalFn, root_states, config: MCTSConfig,
     table from an earlier search's (``SearchOutput.tree.tt``), as the
     reference keeps one table a game across moves."""
     with torch.no_grad():
-        logits, value = _evaluate_roots(env, eval_fn, root_states)
-        tree = instantiate_tree(env, root_states, logits, value, config,
-                                generator, tt)
+        with telemetry.span("search.roots"):
+            logits, value = _evaluate_roots(env, eval_fn, root_states)
+            tree = instantiate_tree(env, root_states, logits, value, config,
+                                    generator, tt)
         tree = _run_waves(env, eval_fn, tree, 1,
                           config.waves * config.wave_size, config)
         return _finalize(tree)
@@ -914,9 +957,11 @@ class HostReuseSearch:
         self._last_action = action
 
     def _reroot(self, action, root_states, generator, noise_on) -> Tree:
-        logits, value = _evaluate_roots(self.env, self.eval_fn, root_states)
-        return reroot(self.env, self._tree, action, root_states, logits,
-                      value, self.config, generator, noise_on)
+        with telemetry.span("search.reroot"):
+            logits, value = _evaluate_roots(self.env, self.eval_fn,
+                                            root_states)
+            return reroot(self.env, self._tree, action, root_states, logits,
+                          value, self.config, generator, noise_on)
 
     @torch.no_grad()
     def advance(self, action: torch.Tensor, new_states,
@@ -938,9 +983,10 @@ class HostReuseSearch:
         sims = cfg.num_simulations
         if self._tree is None or (self._last_action is None
                                   and not self._advanced):
-            logits, value = _evaluate_roots(env, self.eval_fn, root_states)
-            tree = instantiate_tree(env, root_states, logits, value, cfg,
-                                    generator)
+            with telemetry.span("search.roots"):
+                logits, value = _evaluate_roots(env, self.eval_fn, root_states)
+                tree = instantiate_tree(env, root_states, logits, value, cfg,
+                                        generator)
             start, n_new = 1, sims
         else:
             if self._last_action is not None:
@@ -951,7 +997,9 @@ class HostReuseSearch:
                 tree = self._tree
             start = min(cfg.reuse_cap, tree.capacity)
             if cfg.reuse_budget == "topup":
-                reused = int(tree.visits[:, 0].min())
+                reused = tree.visits[:, 0].min()
+                with telemetry.host_sync("search.reuse_topup"):
+                    reused = int(reused)
                 n_new = max(0, min(sims, sims - reused + 1))
             else:
                 n_new = sims

@@ -33,6 +33,7 @@ from alphazero_tpu_torch.models.resnet import (
     AZResNet, fold_batch_norm, make_inference_eval_fn,
 )
 from alphazero_tpu_torch.ops.s8_mm import s8_mm
+from alphazero_tpu_torch.utils import telemetry
 
 BF16 = torch.bfloat16
 
@@ -460,9 +461,11 @@ def _chunked_int8_eval(qp, obs, chunk, chunk_mode, residual="bf16",
     if chunk and B > chunk and B % chunk == 0:
         x = obs.float().permute(0, 2, 3, 1)
         xq = _quant_act(x, qp["in_scale"]).contiguous()
-        outs = [forward_int8_from_q(qp, xq[i * chunk:(i + 1) * chunk],
-                                    residual, heads)
-                for i in range(B // chunk)]
+        outs = []
+        for i in range(B // chunk):
+            with telemetry.span("eval.chunk"):
+                outs.append(forward_int8_from_q(
+                    qp, xq[i * chunk:(i + 1) * chunk], residual, heads))
         return (torch.cat([a for a, _ in outs]),
                 torch.cat([b for _, b in outs]))
     return forward_int8(qp, obs, residual, heads)

@@ -1,11 +1,15 @@
 """Self-play generation CLI (counterpart of
-``alphazero_tpu/scripts/self_play.py``, the same flags plus ``--device``).
+``alphazero_tpu/scripts/self_play.py``, the same flags plus ``--device``
+and ``--spans``).
 
 Generates games with a model bundle or the uniform stub and writes
 GameRecord JSONs; prints one JSON stats line.  ``--inference folded`` (the
 default) runs the BN-folded bf16 net; ``--inference int8`` runs the
 production executor of ``production.py`` (rollout calibration on the folded
-net, then the int8 trunk of ``models/quant.py``).
+net, then the int8 trunk of ``models/quant.py``).  ``--spans PATH``
+records the run's spans and counters (``utils/telemetry.py``) and writes
+them to ``PATH`` as a Chrome trace, on the time base of ``torch.profiler``'s
+traces.
 
     python -m alphazero_tpu_torch.scripts.self_play \\
         --model models_zoo/flagship_gomoku15 --num-games 64
@@ -13,6 +17,7 @@ net, then the int8 trunk of ``models/quant.py``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -39,6 +44,9 @@ def main(argv=None):
                    "production int8 trunk (production.py)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
+    p.add_argument("--spans", default=None, metavar="PATH",
+                   help="record the run's spans and counters and write them "
+                   "to PATH as a Chrome trace")
     args = p.parse_args(argv)
 
     import torch
@@ -51,6 +59,7 @@ def main(argv=None):
     from alphazero_tpu_torch.selfplay.actor import (
         SelfPlayConfig, make_host_actor, stack_records,
     )
+    from alphazero_tpu_torch.utils import telemetry
 
     device = torch.device(args.device)
     env = registry.create_game(args.game, args.board_size)
@@ -85,19 +94,23 @@ def main(argv=None):
     recs = []
     think_ms = []  # per-move host wall ms (a sync every 16 moves lumps there)
     t_prev = t0
-    for t in range(config.max_moves):
-        states, rec = step(states, gen)
-        recs.append(rec)
-        if (t + 1) % 16 == 0 and bool(env.terminal_flag(states).all()):
-            think_ms.append((time.perf_counter() - t_prev) * 1000)
-            break
-        now = time.perf_counter()
-        think_ms.append((now - t_prev) * 1000)
-        t_prev = now
+    with (telemetry.recording() if args.spans
+          else contextlib.nullcontext()) as spans:
+        for t in range(config.max_moves):
+            states, rec = step(states, gen)
+            recs.append(rec)
+            if (t + 1) % 16 == 0 and bool(env.terminal_flag(states).all()):
+                think_ms.append((time.perf_counter() - t_prev) * 1000)
+                break
+            now = time.perf_counter()
+            think_ms.append((now - t_prev) * 1000)
+            t_prev = now
     out = stack_records(env, states, recs)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.perf_counter() - t0
+    if args.spans:
+        telemetry.export_chrome(spans, args.spans)
 
     records = game_record.records_from_selfplay(env, out, think_ms=think_ms)
     os.makedirs(args.output_dir, exist_ok=True)

@@ -24,6 +24,7 @@ from alphazero_tpu_torch.mcts.search import (
     EvalFn, HostReuseSearch, MCTSConfig, check_config, make_host_search,
     search, select_action,
 )
+from alphazero_tpu_torch.utils import telemetry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +68,8 @@ def _step_and_record(env, states, action, policy, root_value, active,
                      config: SelfPlayConfig, record_states: bool):
     """Apply the chosen actions, detect segment ends, optionally recycle
     finished lanes into fresh games."""
-    new_states = env.step(states, action)
+    with telemetry.span("env.step"):
+        new_states = env.step(states, action)
     done = env.terminal_flag(new_states)
     ended = active & done
     ended_winner = torch.where(ended, env.winner(new_states), -2).to(torch.int32)
@@ -186,18 +188,20 @@ def make_host_actor(env, eval_fn: EvalFn, config: SelfPlayConfig,
 
     @torch.no_grad()
     def step(states, generator: torch.Generator | None = None):
-        out = run_search(states, generator)
-        action = select_action(generator, out.visit_counts,
-                               _temperature(states, config))
-        active = ~env.terminal_flag(states)
-        counts = out.visit_counts
-        policy = counts / counts.sum(-1, keepdim=True).clamp(min=1)
-        step.last_search = out
-        new_states, record = _step_and_record(
-            env, states, action, policy.float(), out.root_value, active,
-            config, record_states)
-        if reuse:
-            run_search.notify_action(record.action)
+        with telemetry.span(telemetry.STEP):
+            out = run_search(states, generator)
+            with telemetry.span("actor.move"):
+                action = select_action(generator, out.visit_counts,
+                                       _temperature(states, config))
+                active = ~env.terminal_flag(states)
+                counts = out.visit_counts
+                policy = counts / counts.sum(-1, keepdim=True).clamp(min=1)
+                step.last_search = out
+                new_states, record = _step_and_record(
+                    env, states, action, policy.float(), out.root_value,
+                    active, config, record_states)
+            if reuse:
+                run_search.notify_action(record.action)
         return new_states, record
 
     step.last_search = None
