@@ -9,7 +9,9 @@ Turns a trained ``AZResNet`` into a quantised inference function:
     from sample observations (maxima, or an abs-percentile),
   * each conv runs s8 x s8 -> s32 through the hand-written ``ops.s8_mm``
     product (the 3x3 conv as an im2col matrix), followed by an f32 requant
-    epilogue (scale, bias, ReLU, round),
+    epilogue (scale, bias, ReLU, round); on the card the trunk's epilogues,
+    with the residual add, the SE scale and the gate's tap sums, are one
+    hand-written pass each (``ops.int8_epilogue``),
   * SE gating, residual adds and the dense head layers stay bf16.
 
 Layouts are the JAX package's, so its quantised parameters carry across
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 from alphazero_tpu_torch.models.resnet import (
     AZResNet, fold_batch_norm, make_inference_eval_fn,
 )
+from alphazero_tpu_torch.ops.int8_epilogue import int8_epilogue
 from alphazero_tpu_torch.ops.s8_mm import s8_mm
 from alphazero_tpu_torch.utils import telemetry
 
@@ -294,13 +297,18 @@ def _se_gate_precomputed(hq, blk):
     reduction over the materialised [B,H,W,O] conv output, so the gate does
     not wait for conv2."""
     B, H, W, C = hq.shape
-    taps = _tap_sums(hq).float()  # [B,9,C]
+    return _se_gate_from_taps(_tap_sums(hq), H * W, blk)[:, None, None, :]
+
+
+def _se_gate_from_taps(taps, hw: int, blk):
+    """``_se_gate_precomputed``'s gate [B,O] from the [B,9,C] i32 tap sums
+    of conv2's quantised input over a board of ``hw`` cells."""
+    B, _, C = taps.shape
     wq2 = blk["wq2_f32"] if "wq2_f32" in blk else blk["wq2"].float()
     wq2 = wq2.reshape(9 * C, -1)
-    s = taps.reshape(B, 9 * C) @ wq2
-    mean = (s * blk["m2"]) / (H * W) + blk["b2"]  # == mean_hw(h2), [B,O]
-    g = _se_gate_from_mean(mean.to(BF16), blk["se1"], blk["se2"])
-    return g[:, None, None, :]
+    s = taps.float().reshape(B, 9 * C) @ wq2
+    mean = (s * blk["m2"]) / hw + blk["b2"]  # == mean_hw(h2), [B,O]
+    return _se_gate_from_mean(mean.to(BF16), blk["se1"], blk["se2"])
 
 
 def _quant_act(a, scale, lo: float = -127.0):
@@ -309,8 +317,18 @@ def _quant_act(a, scale, lo: float = -127.0):
     ``_quant_act(a, s, lo=0)`` are equal bit for bit (the scale is
     positive, so a negative input rounds to a value the clip sends to 0),
     with one pass over the tensor fewer."""
-    q = torch.round(a.float() * (127.0 / scale))
+    q = torch.round(a.float() * _quant_mul(scale))
     return q.clamp_(lo, 127).to(torch.int8)
+
+
+def _quant_mul(scale):
+    """The multiplier ``127 / scale`` of ``_quant_act``."""
+    return 127.0 / scale
+
+
+def _res_scale(s_prev):
+    """The bf16 ``s_prev / 127`` that dequantises the int8 residual."""
+    return (s_prev.float() / 127.0).to(BF16)
 
 
 def _requant(acc, m, bias):
@@ -318,6 +336,66 @@ def _requant(acc, m, bias):
     s32 -> f32 conversion happens inside the multiply (type promotion): the
     same values as ``acc.float() * m`` in one pass over the tensor."""
     return (acc * m).add_(bias)
+
+
+def _epilogue_stem_plain(acc, st):
+    """The stem conv's epilogue from its s32 product: ``(aq, a)``, the s8
+    activation and the bf16 one it quantises (``int8_epilogue("stem")``)."""
+    a = torch.relu_(_requant(acc, st["m"], st["bias"])).to(BF16)
+    return _quant_act(a, st["out_scale"]), a
+
+
+def _epilogue_conv1_plain(acc, blk):
+    """conv1's epilogue: ``(hq, taps)``, the s8 activation (ReLU in the
+    clip) and its tap sums for the SE gate (``int8_epilogue("conv1")``)."""
+    hq = _quant_act(_requant(acc, blk["m1"], blk["b1"]), blk["mid_scale"],
+                    lo=0.0)
+    return hq, _tap_sums(hq)
+
+
+def _epilogue_conv2_plain(acc, blk, g, a, aq, s_prev, residual):
+    """conv2's epilogue with the SE scale ``g`` [B,O] and the residual add:
+    ``(aq, a)``, the block's s8 and bf16 outputs.  The residual is the bf16
+    ``a``, or with ``residual="int8"`` the s8 ``aq`` dequantised by a bf16
+    ``s_prev / 127`` (``int8_epilogue("conv2")``)."""
+    h2 = _requant(acc, blk["m2"], blk["b2"]).to(BF16)
+    if residual == "int8":
+        a = aq.to(BF16) * _res_scale(s_prev)
+    a = torch.relu(a + h2 * g[:, None, None, :])
+    return _quant_act(a, blk["out_scale"]), a
+
+
+def _fused(acc) -> bool:
+    """Whether a trunk conv's epilogue takes the kernel: on the card; each
+    conv counted under the path it took."""
+    telemetry.count("eval.epilogue_fused" if acc.is_cuda else "eval.epilogue_plain")
+    return acc.is_cuda
+
+
+def _epilogue_stem(acc, st, want_a):
+    """``_epilogue_stem_plain``, or the kernel where ``_fused``; the kernel
+    writes the bf16 ``a`` only where ``want_a`` (else None)."""
+    if _fused(acc):
+        return int8_epilogue("stem", acc, st["m"], st["bias"], st["out_qmul"],
+                             want_a=want_a)
+    return _epilogue_stem_plain(acc, st)
+
+
+def _epilogue_conv1(acc, blk):
+    if _fused(acc):
+        return int8_epilogue("conv1", acc, blk["m1"], blk["b1"], blk["mid_qmul"])
+    return _epilogue_conv1_plain(acc, blk)
+
+
+def _epilogue_conv2(acc, blk, g, a, aq, s_prev, residual, want_a):
+    """``_epilogue_conv2_plain``, or the kernel where ``_fused`` (the bf16
+    ``a`` only where ``want_a``, else None)."""
+    if _fused(acc):
+        int8 = residual == "int8"
+        return int8_epilogue("conv2", acc, blk["m2"], blk["b2"], blk["out_qmul"],
+                             want_a=want_a, gate=g, residual=aq if int8 else a,
+                             res_scale=blk["res_scale"] if int8 else None)
+    return _epilogue_conv2_plain(acc, blk, g, a, aq, s_prev, residual)
 
 
 def _heads_int8(qp, aq):
@@ -347,25 +425,31 @@ def forward_int8_from_q(qp, xq, residual: str = "bf16",
     ``residual``: "bf16" keeps a bf16 master copy of the trunk stream for
     the residual adds; "int8" carries ONLY the s8 activation between blocks
     and dequantises it (in bf16, by a bf16 scale) at the next residual
-    add."""
+    add.
+
+    On the card ``qp`` is the executor's (``_executor_params``): the fused
+    epilogues read the constants it stores."""
     if residual not in ("bf16", "int8") or heads not in ("bf16", "int8"):
         raise ValueError(f"residual and heads are 'bf16' or 'int8', got "
                          f"{residual!r}, {heads!r}")
-    st = qp["stem"]
-    y = _requant(_conv_i8(xq, st["wq"]), st["m"], st["bias"])
-    a = torch.relu_(y).to(BF16)  # stem out
-    aq = _quant_act(a, st["out_scale"])
+    st, blocks = qp["stem"], qp["blocks"]
+    if xq.is_cuda and "out_qmul" not in st:
+        raise ValueError("on the card the int8 executor takes the parameters "
+                         "of _executor_params(qp)")
+    # The bf16 stream is read by the next residual add (residual="bf16") and
+    # by the bf16 heads after the last block; the kernel writes it only there.
+    keep_a = residual == "bf16"
+    last_a = heads == "bf16"
+    aq, a = _epilogue_stem(_conv_i8(xq, st["wq"]), st,
+                           keep_a or (last_a and not blocks))
     s_prev = st["out_scale"]
-    for blk in qp["blocks"]:
-        h = _requant(_conv_i8(aq, blk["wq1"]), blk["m1"], blk["b1"])
-        hq = _quant_act(h, blk["mid_scale"], lo=0.0)  # ReLU in the clip
+    for i, blk in enumerate(blocks):
+        hq, taps = _epilogue_conv1(_conv_i8(aq, blk["wq1"]), blk)
         # Gate from tap sums of hq: it does not need conv2's output.
-        g = _se_gate_precomputed(hq, blk)
-        h2 = _requant(_conv_i8(hq, blk["wq2"]), blk["m2"], blk["b2"]).to(BF16)
-        if residual == "int8":
-            a = aq.to(BF16) * (s_prev.float() / 127.0).to(BF16)
-        a = torch.relu(a + h2 * g)
-        aq = _quant_act(a, blk["out_scale"])
+        g = _se_gate_from_taps(taps, hq.shape[1] * hq.shape[2], blk)
+        aq, a = _epilogue_conv2(_conv_i8(hq, blk["wq2"]), blk, g, a, aq,
+                                s_prev, residual,
+                                keep_a or (last_a and i == len(blocks) - 1))
         s_prev = blk["out_scale"]
     if heads == "int8":
         return _heads_int8(qp, aq)
@@ -438,13 +522,25 @@ def _executor_params(qp):
     and conv2's s8 weight also in f32 for the gate's contraction (the JAX
     package leaves these to XLA's constant folding).  Rounding to bf16 once
     gives the same values as rounding at every call, and ``.to`` of a
-    tensor that already has the type launches nothing."""
+    tensor that already has the type launches nothing.  The fused
+    epilogues' constants, ``_quant_mul`` of each quantiser and the int8
+    residual's ``_res_scale``, are made here by the functions the plain
+    passes call, on the scales' device, so they hold the same values."""
     def bf16(d):
         return {k: v.to(BF16) for k, v in d.items()}
 
     out = dict(qp)
-    out["blocks"] = [dict(b, se1=bf16(b["se1"]), se2=bf16(b["se2"]),
-                          wq2_f32=b["wq2"].float()) for b in qp["blocks"]]
+    st = qp["stem"]
+    out["stem"] = dict(st, out_qmul=_quant_mul(st["out_scale"]))
+    blocks, s_prev = [], st["out_scale"]
+    for b in qp["blocks"]:
+        blocks.append(dict(b, se1=bf16(b["se1"]), se2=bf16(b["se2"]),
+                           wq2_f32=b["wq2"].float(),
+                           mid_qmul=_quant_mul(b["mid_scale"]),
+                           out_qmul=_quant_mul(b["out_scale"]),
+                           res_scale=_res_scale(s_prev)))
+        s_prev = b["out_scale"]
+    out["blocks"] = blocks
     for k in ("policy_conv", "policy_dense", "value_conv", "value_dense1",
               "value_dense2"):
         out[k] = bf16(qp[k])

@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build: every CUDA source (gather_rows, wgmma_mm), one nvcc each,
+  2. build: every CUDA source (gather_rows, wgmma_mm, int8_epilogue), one nvcc each,
      started together (sm_90a); prints each kernel's registers and shared
      memory, counts the wgmma and TMA instructions in wgmma_mm's machine
      code, the IGMMA (s8) / HGMMA (bf16) instructions of every chained_dot
@@ -32,13 +32,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      one PyTorch library call, and the roofline bound;
   4. nets on the card against the port's CPU forwards on 64 mid-game
      positions: bf16/f32 folded net, and the int8 executor on the same qp;
+     [epilogue]: each form of the int8 trunk's epilogue kernel
+     (ops/int8_epilogue.py) against its plain passes at a Gomoku chunk's
+     accumulator (bit for bit), with CUDA-event times of both, eager and
+     from a CUDA graph that cycles through inputs larger than L2
+     (scripts/profile_int8_chunk.epilogue_rows), and its bytes bound;
   5. main path at full width with the production executor: the flagship
      6x64 SE-ResNet bundle, rollout calibration on the card, int8 trunk,
      driving make_host_actor at B=1024, 800 simulations, W=16, K=32,
      recycle on, for 2 moves (1 warm-up, 1 timed; cut from 3, printed);
      checks root visit sums, action legality, and that gather_rows and
      s8_mm were launched, s8_mm exactly as often as the chunk count
-     predicts; prints gather launches a move;
+     predicts, and int8_epilogue once for each of those products (the
+     heads' convs are bf16); prints gather launches a move;
      [w1_main]: the sequential search (W=1) at the shipped config's width,
      B=256, 200 simulations (cut from 800, then 400), int8
      executor, 2 moves: the same checks, s8_mm exactly 13 x (1 + 200)
@@ -304,7 +310,7 @@ def phase_device() -> tuple:
 def phase_build() -> None:
     from alphazero_tpu_torch.ops import _build
 
-    names = ["gather_rows", "wgmma_mm"]
+    names = ["gather_rows", "wgmma_mm", "int8_epilogue"]
     t0 = time.perf_counter()
     _build.build(names)
     secs = time.perf_counter() - t0
@@ -646,8 +652,8 @@ def phase_net_int8(env, model, calib) -> dict:
     from alphazero_tpu_torch import production
     from alphazero_tpu_torch.models import quant
 
-    qp = quant.build_quantized_params(
-        model, calib, calib_percentile=production.INT8_CALIB_PERCENTILE)
+    qp = quant._executor_params(quant.build_quantized_params(
+        model, calib, calib_percentile=production.INT8_CALIB_PERCENTILE))
 
     def to_cpu(x):
         if isinstance(x, dict):
@@ -657,20 +663,40 @@ def phase_net_int8(env, model, calib) -> dict:
         return x.cpu() if isinstance(x, torch.Tensor) else x
 
     def traced(params, obs):
-        """forward_int8 plus every s8 activation it quantised."""
-        acts, orig = [], quant._quant_act
+        """forward_int8 plus every s8 activation it quantised: the input and
+        each trunk conv's epilogue output, whether the fused kernel (card) or
+        the plain passes (CPU) made it."""
+        acts, inside = [], []
+        names = ("_quant_act", "_epilogue_stem", "_epilogue_conv1",
+                 "_epilogue_conv2")
+        orig = {n: getattr(quant, n) for n in names}
 
-        def record(*args, **kw):
-            acts.append(orig(*args, **kw))
-            return acts[-1]
+        def quant_act(*args, **kw):
+            out = orig["_quant_act"](*args, **kw)
+            if not inside:
+                acts.append(out)
+            return out
 
-        quant._quant_act = record
+        def epilogue(name):
+            def run(*args, **kw):
+                inside.append(name)
+                try:
+                    out = orig[name](*args, **kw)
+                finally:
+                    inside.pop()
+                acts.append(out[0])
+                return out
+            return run
+
+        for n in names:
+            setattr(quant, n, quant_act if n == "_quant_act" else epilogue(n))
         try:
             with torch.no_grad():
                 out = quant.forward_int8(params, obs, production.INT8_RESIDUAL,
                                          production.INT8_HEADS)
         finally:
-            quant._quant_act = orig
+            for n, fn in orig.items():
+                setattr(quant, n, fn)
         return out, acts
 
     obs = env.observation(_random_states(env, 64, 40, seed=1, device="cpu"))
@@ -701,6 +727,29 @@ def phase_net_int8(env, model, calib) -> dict:
     if not (res["logit_err"] < 0.5 and res["value_err"] < 0.1):
         raise AssertionError(f"int8 net on the card disagrees with the CPU: {res}")
     return res
+
+
+def phase_epilogue(env, model, calib) -> list:
+    """[epilogue]: ``scripts/profile_int8_chunk.epilogue_rows`` on the
+    flagship's executor parameters at a chunk of ``env``'s boards, in the
+    production residual mode: each form of the int8 trunk's epilogue kernel
+    bit for bit its plain passes, with the times of both and the bytes
+    bound."""
+    from alphazero_tpu_torch import production
+    from alphazero_tpu_torch.models import quant
+    from alphazero_tpu_torch.scripts.profile_int8_chunk import epilogue_rows
+
+    qp = quant._executor_params(quant.build_quantized_params(
+        model, calib, calib_percentile=production.INT8_CALIB_PERCENTILE))
+    with torch.no_grad():
+        rows = epilogue_rows(qp, production.INT8_CHUNK, env.observation_shape[-1],
+                             production.INT8_RESIDUAL)
+    for r in rows:
+        log("[epilogue] " + json.dumps(r))
+    bad = [r["form"] for r in rows if not r["bit_equal"]]
+    if bad:
+        raise AssertionError(f"int8_epilogue differs from its plain passes: {bad}")
+    return rows
 
 
 def _s8_launches_expected(batches, convs: int, chunk: int) -> int:
@@ -735,6 +784,7 @@ def phase_main_path(env, eval_fn, label: str, sims: int, moves: int,
     from alphazero_tpu_torch import production
     from alphazero_tpu_torch.mcts.search import MCTSConfig
     from alphazero_tpu_torch.ops.gather_rows import gather_rows
+    from alphazero_tpu_torch.ops.int8_epilogue import int8_epilogue
     from alphazero_tpu_torch.ops.s8_mm import s8_mm
     from alphazero_tpu_torch.selfplay.actor import SelfPlayConfig, make_host_actor
 
@@ -775,6 +825,7 @@ def phase_main_path(env, eval_fn, label: str, sims: int, moves: int,
 
     gather_rows.launches = 0
     s8_mm.launches = 0
+    int8_epilogue.launches = 0
     times, fresh, per_move = [], [], []
     for move in range(moves):
         before = (gather_rows.launches, s8_mm.launches, len(batches))
@@ -790,7 +841,8 @@ def phase_main_path(env, eval_fn, label: str, sims: int, moves: int,
         if reuse:
             fresh.append(step.search.last_fresh_sims)
         states = new_states
-    launches = {"gather_rows": gather_rows.launches, "s8_mm": s8_mm.launches}
+    launches = {"gather_rows": gather_rows.launches, "s8_mm": s8_mm.launches,
+                "int8_epilogue": int8_epilogue.launches}
     gather_per_move = gather_rows.launches / moves
     if launches["gather_rows"] <= 0:
         raise AssertionError(f"the {tag} path launched no gather_rows kernel")
@@ -798,6 +850,14 @@ def phase_main_path(env, eval_fn, label: str, sims: int, moves: int,
     if launches["s8_mm"] != expected or (s8_convs and expected <= 0):
         raise AssertionError(f"s8_mm launches {launches['s8_mm']}, but the "
                              f"evaluated batches predict {expected}")
+    # Every trunk conv's product is followed by one epilogue launch; the
+    # heads' 1x1 convs (2 a chunk) run s8_mm only under heads="int8".
+    heads_convs = 2 if s8_convs and production.INT8_HEADS == "int8" else 0
+    epilogues = _s8_launches_expected(batches, s8_convs - heads_convs,
+                                      production.INT8_CHUNK)
+    if launches["int8_epilogue"] != epilogues:
+        raise AssertionError(f"int8_epilogue launches {launches['int8_epilogue']}, "
+                             f"but the evaluated batches predict {epilogues}")
     if reuse and not (fresh[0] == sims and max(fresh[1:]) < sims):
         raise AssertionError(f"tree reuse saved no simulations: {fresh}")
     if reuse:
@@ -3923,11 +3983,18 @@ def _compare_learners(card, cpu, lr) -> dict:
     }
 
 
+# The int8 executor's trunk epilogues (models/quant.py): on the card each
+# takes the int8_epilogue kernel; the last argument, ``want_a``, asks for
+# the bf16 copy, which the kernel leaves out (None) where it is not read.
+EPILOGUES = ("_epilogue_stem", "_epilogue_conv1", "_epilogue_conv2")
+
+
 class _KernelCalls:
     """While active, keeps the inputs of the first call of each distinct
     signature (shapes, strides, dtypes, each base's offset from 16 bytes)
     of the kernel wrappers that the search and the int8 executor call, and
-    counts the calls of each.  It wraps the names those modules bound at
+    of the executor's trunk epilogues (``EPILOGUES``), and counts the calls
+    of each.  It wraps the names those modules bound at
     import and passes every call on unchanged, so the wrappers' own launch
     counts stay what the path launched."""
 
@@ -3938,6 +4005,10 @@ class _KernelCalls:
     def _sig(x):
         if isinstance(x, (tuple, list)):
             return tuple(_KernelCalls._sig(t) for t in x)
+        if isinstance(x, dict):  # a layer's parameters: the same shapes each call
+            return "params"
+        if not isinstance(x, torch.Tensor):  # None, a mode, a flag
+            return x
         return (tuple(x.shape), tuple(x.stride()), str(x.dtype).replace("torch.", ""),
                 x.data_ptr() % 16)
 
@@ -3953,7 +4024,7 @@ class _KernelCalls:
         from alphazero_tpu_torch.models import quant
 
         self._orig = [(search, "gather_rows"), (search, "gather_rows_many"),
-                      (quant, "s8_mm")]
+                      (quant, "s8_mm")] + [(quant, n) for n in EPILOGUES]
         self._orig = [(m, n, getattr(m, n)) for m, n in self._orig]
         for m, n, fn in self._orig:
             setattr(m, n, self._wrap(n, fn))
@@ -3967,14 +4038,21 @@ class _KernelCalls:
 def _hold_recorded(cases) -> list:
     """Each recorded call again through its kernel and its plain version on
     the same tensors: bit for bit (the s8 products are exact; a gather
-    moves bytes).  TF32 off: the plain s8 product is an f32 matmul, exact
+    moves bytes; the int8 epilogue rounds each operation as its plain
+    passes do).  TF32 off: the plain s8 product is an f32 matmul, exact
     only in full f32 (K <= 1024 terms of at most 128**2)."""
+    from alphazero_tpu_torch.models import quant
     from alphazero_tpu_torch.ops.gather_rows import (
         gather_rows, gather_rows_many, gather_rows_many_plain, gather_rows_plain)
     from alphazero_tpu_torch.ops.s8_mm import s8_mm, s8_mm_plain
 
     fns = {"s8_mm": (s8_mm, s8_mm_plain), "gather_rows": (gather_rows, gather_rows_plain),
-           "gather_rows_many": (gather_rows_many, gather_rows_many_plain)}
+           "gather_rows_many": (gather_rows_many, gather_rows_many_plain),
+           "_epilogue_stem": (quant._epilogue_stem,
+                              lambda acc, st, want_a: quant._epilogue_stem_plain(acc, st)),
+           "_epilogue_conv1": (quant._epilogue_conv1, quant._epilogue_conv1_plain),
+           "_epilogue_conv2": (quant._epilogue_conv2,
+                               lambda *args: quant._epilogue_conv2_plain(*args[:-1]))}
     rows = []
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3984,9 +4062,14 @@ def _hold_recorded(cases) -> list:
             out, ref = kern(*args), plain(*args)
             outs = out if isinstance(out, tuple) else (out,)
             refs = ref if isinstance(ref, tuple) else (ref,)
-            equal = all(o.dtype == r.dtype and o.shape == r.shape
-                        and torch.equal(o.view(torch.uint8), r.view(torch.uint8))
-                        for o, r in zip(outs, refs))
+            # The kernel leaves an epilogue's bf16 copy (its second output)
+            # out where ``want_a`` is false: None is then no difference.
+            skip = name in EPILOGUES and name != "_epilogue_conv1" and not args[-1]
+            equal = len(outs) == len(refs) and all(
+                (skip and i == 1 and o is None)
+                or (o is not None and o.dtype == r.dtype and o.shape == r.shape
+                    and torch.equal(o.view(torch.uint8), r.view(torch.uint8)))
+                for i, (o, r) in enumerate(zip(outs, refs)))
             rows.append({"kernel": name, "inputs": sig, "calls": calls,
                          "bit_equal": equal})
         torch.cuda.synchronize()
@@ -4462,6 +4545,7 @@ def main() -> int:
     log(f"[calibration] {tuple(calib.shape)} rollout observations, calibrated "
         f"and quantised in {time.perf_counter() - t0:.2f} s")
     phase_net_int8(env, model, calib)
+    epilogue_rows = timed("epilogue", phase_epilogue, env, model, calib)
     convs = 1 + 2 * model.cfg.num_blocks  # bf16 heads: trunk convs only
     # Cut to keep the script near 300 s: [main] plays 2 moves (was 3), one
     # of them timed.
@@ -4565,6 +4649,25 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+    # The epilogue's line: the times of its conv2 form at [main]'s chunk
+    # (int8 residual, no bf16 copy: 5 of a chunk's 13 launches), held bit
+    # for bit in [epilogue]; the JAX package leaves the epilogue to XLA,
+    # which fuses it into the conv.
+    conv2 = next(r for r in epilogue_rows if r["form"] == "conv2")
+    kernels.append({
+        "name": "int8_epilogue",
+        "route": "cuda",
+        "source": "alphazero_tpu_torch/csrc/int8_epilogue.cu",
+        "replaces": "alphazero_tpu/models/quant.py:339",
+        "launches": main_res["launches"]["int8_epilogue"],
+        "max_abs_err": 0.0,
+        "ms": conv2["ms"],
+        "graph_ms": conv2["graph_ms"],
+        "plain_ms": conv2["plain_ms"],
+        "bound_ms": conv2["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    })
     log("[timing] phase wall seconds: " + json.dumps(walls))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
