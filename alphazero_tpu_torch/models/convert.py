@@ -109,6 +109,10 @@ def flax_from_state_dict(sd: Dict[str, torch.Tensor], num_blocks: int,
     """The port's ``AZResNet.state_dict`` as flax variables: numpy float32
     ``{"params": ..., "batch_stats": ...}`` (no ``batch_stats`` unless
     ``norm="batch"``), the tree JAX's ``model.init`` gives."""
+    if any(".conv_p." in k for k in sd):
+        raise ValueError("convert: block 'nbt' (KataGo's nested bottleneck) "
+                         "has no JAX counterpart and no flax layout")
+
     def a(key):
         return _arr(sd, key)
 

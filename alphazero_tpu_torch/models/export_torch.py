@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from alphazero_tpu_torch.models.resnet import (
-    AZResNet, fold_batch_norm, make_inference_eval_fn,
+    AZResNet, fold_batch_norm, make_inference_eval_fn, require_se_block,
 )
 
 
@@ -35,6 +35,7 @@ def full_f32():
 def build_torch_module(model: AZResNet):
     """The folded float32 CPU copy of ``model`` (a ``norm="batch"`` or
     ``"none"`` ``AZResNet``) in eval mode.  Returns (module, info)."""
+    require_se_block(model.cfg, "TorchScript export")
     if model.cfg.norm == "batch":
         folded = fold_batch_norm(model)
     elif model.cfg.norm == "none":

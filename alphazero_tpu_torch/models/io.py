@@ -14,6 +14,12 @@ again keeps its bytes.  ``save_model`` writes the variables with every
 map's keys sorted, the order of a trained JAX state (``jax.tree_util``
 sorts dict keys), which the ``models_zoo/`` bundles have.  No ``msgpack``
 or ``flax`` package is needed.
+
+A ``"resnet"`` bundle of ``block="nbt"`` (KataGo's nested-bottleneck
+trunk, which has no JAX counterpart: ``convert.py`` refuses it) holds
+``{"params": {state-dict name: float32 array}}`` under the port's own
+names, and its JSON the nbt keys; only the port reads it.  Every other
+bundle's JSON leaves those keys out, as JAX's does.
 """
 from __future__ import annotations
 
@@ -192,7 +198,10 @@ def write_msgpack(tree: Any) -> bytes:
 
 
 def _model_config_dict(kind: str, num_actions: int, cfg) -> Dict:
-    d = dataclasses.asdict(cfg)
+    if isinstance(cfg, ResNetConfig):
+        d = {k: getattr(cfg, k) for k in cfg.json_fields()}
+    else:
+        d = dataclasses.asdict(cfg)
     d.pop("dtype", None)
     return {"kind": kind, "num_actions": num_actions, "config": d}
 
@@ -220,6 +229,10 @@ def inference_eval_fn(model):
     return make_eval_fn(model.eval())
 
 
+def _array(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
 def _sorted(tree):
     if isinstance(tree, dict):
         return {k: _sorted(tree[k]) for k in sorted(tree)}
@@ -231,6 +244,9 @@ def model_variables(model) -> Dict:
     keys sorted as in a trained JAX state."""
     if isinstance(model, DDWRandWireResNet):
         return _sorted(flax_from_randwire_state_dict(model.state_dict()))
+    if model.cfg.block == "nbt":
+        return _sorted({"params": {k: _array(v) for k, v in model.state_dict().items()
+                                   if v.is_floating_point()}})
     return _sorted(flax_from_state_dict(model.state_dict(),
                                         model.cfg.num_blocks, model.cfg.norm))
 
@@ -256,6 +272,11 @@ def load_model(path: str, obs_shape, device="cuda"):
         variables = read_msgpack(f.read())
     if meta["kind"] == "randwire":
         sd = randwire_state_dict_from_flax(variables)
+    elif model.cfg.block == "nbt":
+        sd = {k: torch.from_numpy(np.array(v, dtype=np.float32))
+              for k, v in variables["params"].items()}
+        sd.update((k, v) for k, v in model.state_dict().items()
+                  if k.endswith("num_batches_tracked"))
     else:
         sd = state_dict_from_flax(variables, model.cfg.num_blocks)
     model.load_state_dict(sd)

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from alphazero_tpu_torch.models.resnet import (
-    AZResNet, fold_batch_norm, make_inference_eval_fn,
+    AZResNet, fold_batch_norm, make_inference_eval_fn, require_se_block,
 )
 from alphazero_tpu_torch.ops.int8_epilogue import int8_epilogue
 from alphazero_tpu_torch.ops.s8_mm import s8_mm
@@ -49,6 +49,7 @@ def extract_folded(model: AZResNet) -> Dict[str, Any]:
     flat dict the executors below consume.  Works for ``norm="batch"``
     (folds first) and ``norm="none"`` (already folded) models."""
     cfg = model.cfg
+    require_se_block(cfg, "the int8 executor and the ONNX export")
     if cfg.norm == "batch":
         model = fold_batch_norm(model)
     elif cfg.norm != "none":

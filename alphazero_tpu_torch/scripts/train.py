@@ -18,6 +18,10 @@ with checkpoints and ``history.json`` under ``--checkpoint-dir``.
     python -m alphazero_tpu_torch.scripts.train --model randwire
                             # DDW-RandWire (4 blocks unless --blocks)
 
+    python -m alphazero_tpu_torch.scripts.train --game go --board-size 19 \
+        --block nbt --blocks 18 --channels 384 --inference folded
+                            # KataGo's b18c384nbt trunk (no int8 executor)
+
 Data-parallel over several processes (one card each, NCCL; gloo with
 ``--device cpu``): each rank plays and trains on its share of the games and
 of each batch, and the gradients are averaged (``parallel/``)::
@@ -64,6 +68,13 @@ def build_parser():
                         "blocks (randwire, default 4)")
     p.add_argument("--channels", type=int, default=64)
     p.add_argument("--model", default="resnet", choices=["resnet", "randwire"])
+    p.add_argument("--block", default="se", choices=["se", "nbt"],
+                   help="resnet trunk: SE-ResNet blocks, or KataGo's "
+                        "nested-bottleneck blocks (the two flags below)")
+    p.add_argument("--gpool-channels", type=int, default=64,
+                   help="nbt: global-pooling channels")
+    p.add_argument("--gpool-every", type=int, default=3,
+                   help="nbt: every n-th block pools (0: none)")
     p.add_argument("--checkpoint-dir", default="checkpoints")
     p.add_argument("--checkpoint-every", type=int, default=5)
     p.add_argument("--resume", action="store_true")
@@ -111,12 +122,18 @@ def pipeline_config(args):
         if args.blocks:
             model_options = (("num_blocks", args.blocks),) + model_options
 
+    nbt = {}
+    if args.block == "nbt":
+        nbt = dict(block="nbt", gpool_channels=args.gpool_channels,
+                   gpool_every=args.gpool_every)
+
     total_steps = args.iterations * args.train_steps
     return PipelineConfig(
         game=args.game,
         board_size=args.board_size,
         game_options=tuple(game_options),
-        model=ResNetConfig(num_blocks=args.blocks or 6, channels=args.channels),
+        model=ResNetConfig(num_blocks=args.blocks or 6, channels=args.channels,
+                           **nbt),
         model_kind=args.model,
         model_options=model_options,
         selfplay=SelfPlayConfig(

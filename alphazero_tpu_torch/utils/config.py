@@ -5,7 +5,8 @@ defaults.
 A torch dtype is written as its name ("torch.bfloat16") and read back as
 that dtype.  The JAX package writes its dtypes as "<class 'jax...'>"
 strings; reading one keeps the field's default, as the JAX reader does, so
-the shipped ``config/*.json`` files load.
+the shipped ``config/*.json`` files load.  A dataclass with a
+``json_fields()`` method is written with those fields alone.
 """
 from __future__ import annotations
 
@@ -18,8 +19,9 @@ import torch
 
 def to_dict(cfg: Any) -> Any:
     if dataclasses.is_dataclass(cfg) and not isinstance(cfg, type):
-        return {f.name: to_dict(getattr(cfg, f.name))
-                for f in dataclasses.fields(cfg)}
+        names = (cfg.json_fields() if hasattr(cfg, "json_fields")
+                 else [f.name for f in dataclasses.fields(cfg)])
+        return {name: to_dict(getattr(cfg, name)) for name in names}
     if isinstance(cfg, (list, tuple)):
         return [to_dict(v) for v in cfg]
     if isinstance(cfg, (type, torch.dtype)):

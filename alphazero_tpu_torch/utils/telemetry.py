@@ -157,6 +157,11 @@ def count_device(name: str, t) -> None:
     acc.add_(t.sum())
 
 
+def active() -> "Recording | None":
+    """The recording that is on, or None."""
+    return _active
+
+
 @contextlib.contextmanager
 def recording():
     """Turn spans and counters on; yields the ``Recording``, whose device
