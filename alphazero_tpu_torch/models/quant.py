@@ -11,7 +11,8 @@ Turns a trained ``AZResNet`` into a quantised inference function:
     product (the 3x3 conv as an im2col matrix), followed by an f32 requant
     epilogue (scale, bias, ReLU, round); on the card the trunk's epilogues,
     with the residual add, the SE scale and the gate's tap sums, are one
-    hand-written pass each (``ops.int8_epilogue``),
+    hand-written pass each (``ops.int8_epilogue``), and each block's SE
+    gate is one hand-written launch (``ops.se_gate``),
   * SE gating, residual adds and the dense head layers stay bf16.
 
 Layouts are the JAX package's, so its quantised parameters carry across
@@ -36,6 +37,7 @@ from alphazero_tpu_torch.models.resnet import (
 )
 from alphazero_tpu_torch.ops.int8_epilogue import int8_epilogue
 from alphazero_tpu_torch.ops.s8_mm import s8_mm
+from alphazero_tpu_torch.ops.se_gate import gate_weights, se_gate
 from alphazero_tpu_torch.utils import telemetry
 
 BF16 = torch.bfloat16
@@ -399,6 +401,21 @@ def _epilogue_conv2(acc, blk, g, a, aq, s_prev, residual, want_a):
     return _epilogue_conv2_plain(acc, blk, g, a, aq, s_prev, residual)
 
 
+def _gate_fused(taps) -> bool:
+    """Whether a block's SE gate takes the kernel: on the card; each block
+    counted under the path it took."""
+    telemetry.count("eval.se_gate_fused" if taps.is_cuda else "eval.se_gate_plain")
+    return taps.is_cuda
+
+
+def _se_gate_block(taps, hw: int, blk):
+    """``_se_gate_from_taps``, or the ``se_gate`` kernel (within a bf16 ulp
+    of it) where ``_gate_fused``."""
+    if _gate_fused(taps):
+        return se_gate(taps, hw, blk["gate"])
+    return _se_gate_from_taps(taps, hw, blk)
+
+
 def _heads_int8(qp, aq):
     """Policy/value heads from the QUANTISED trunk activation: the 1x1
     head convs run s8 x s8 -> s32 with an f32 requant, so the final bf16
@@ -429,7 +446,7 @@ def forward_int8_from_q(qp, xq, residual: str = "bf16",
     add.
 
     On the card ``qp`` is the executor's (``_executor_params``): the fused
-    epilogues read the constants it stores."""
+    epilogues and the SE gate's kernel read the constants it stores."""
     if residual not in ("bf16", "int8") or heads not in ("bf16", "int8"):
         raise ValueError(f"residual and heads are 'bf16' or 'int8', got "
                          f"{residual!r}, {heads!r}")
@@ -447,7 +464,7 @@ def forward_int8_from_q(qp, xq, residual: str = "bf16",
     for i, blk in enumerate(blocks):
         hq, taps = _epilogue_conv1(_conv_i8(aq, blk["wq1"]), blk)
         # Gate from tap sums of hq: it does not need conv2's output.
-        g = _se_gate_from_taps(taps, hq.shape[1] * hq.shape[2], blk)
+        g = _se_gate_block(taps, hq.shape[1] * hq.shape[2], blk)
         aq, a = _epilogue_conv2(_conv_i8(hq, blk["wq2"]), blk, g, a, aq,
                                 s_prev, residual,
                                 keep_a or (last_a and i == len(blocks) - 1))
@@ -526,7 +543,10 @@ def _executor_params(qp):
     tensor that already has the type launches nothing.  The fused
     epilogues' constants, ``_quant_mul`` of each quantiser and the int8
     residual's ``_res_scale``, are made here by the functions the plain
-    passes call, on the scales' device, so they hold the same values."""
+    passes call, on the scales' device, so they hold the same values.  The
+    SE gate's kernel reads each block's ``gate``: conv2's weight as a
+    ``[9C, O]`` matrix and the SE weights in contiguous bf16
+    (``ops.se_gate.gate_weights``)."""
     def bf16(d):
         return {k: v.to(BF16) for k, v in d.items()}
 
@@ -535,8 +555,9 @@ def _executor_params(qp):
     out["stem"] = dict(st, out_qmul=_quant_mul(st["out_scale"]))
     blocks, s_prev = [], st["out_scale"]
     for b in qp["blocks"]:
-        blocks.append(dict(b, se1=bf16(b["se1"]), se2=bf16(b["se2"]),
-                           wq2_f32=b["wq2"].float(),
+        se1, se2 = bf16(b["se1"]), bf16(b["se2"])
+        blocks.append(dict(b, se1=se1, se2=se2, wq2_f32=b["wq2"].float(),
+                           gate=gate_weights(b["wq2"], b["m2"], b["b2"], se1, se2),
                            mid_qmul=_quant_mul(b["mid_scale"]),
                            out_qmul=_quant_mul(b["out_scale"]),
                            res_scale=_res_scale(s_prev)))

@@ -7,12 +7,16 @@ time to enqueue it, its kernel launches and summed device time (from
 ``torch.profiler``), the top kernels by device time, and each piece of one
 block on its own (pad, im2col copy in 4-byte words and byte-wise, the s8
 conv, requant, quantise, tap sums, SE gate, heads).  The chunk is measured
-twice: with the fused epilogues (``ops/int8_epilogue.py``) and, under
-``plain``, with every epilogue taking its plain passes (``quant._fused``
-patched for the measurement).  ``epilogue`` holds ``epilogue_rows``: each
-epilogue form, kernel against plain passes, checked bit for bit and timed
-from a CUDA graph that keeps no input or output in L2; ``epilogue_chunk``
-sums them over the 13 trunk convs of a chunk.  Prints one JSON line.
+three times: with the fused epilogues (``ops/int8_epilogue.py``) and the SE
+gate's kernel (``ops/se_gate.py``); under ``plain_gate``, with the gate
+taking its plain chain (``quant._gate_fused`` patched), the chunk as it was
+before the gate's kernel; and under ``plain``, with every epilogue taking
+its plain passes too (``quant._fused`` patched).  ``epilogue`` holds
+``epilogue_rows``: each epilogue form, kernel against plain passes, checked
+bit for bit and timed from a CUDA graph that keeps no input or output in
+L2; ``epilogue_chunk`` sums them over the 13 trunk convs of a chunk.
+``gate`` holds ``gate_row``: the gate's kernel against its plain chain, in
+bf16 ulps, timed the same way.  Prints one JSON line.
 
     python -m alphazero_tpu_torch.scripts.profile_int8_chunk
 """
@@ -83,9 +87,12 @@ def main(argv=None):
         }
         piece_ms = {k: cuda_ms(fn, 20) for k, fn in pieces.items()}
         rows = epilogue_rows(qp, chunk, 15, modes[0])
+        gate = gate_row(qp, chunk, 15)
         measured = {"fused": chunk_stats(forward, cuda_ms, args.top)}
-        with mock.patch.object(quant, "_fused", lambda acc: False):
-            measured["plain"] = chunk_stats(forward, cuda_ms, args.top)
+        with mock.patch.object(quant, "_gate_fused", lambda taps: False):
+            measured["plain_gate"] = chunk_stats(forward, cuda_ms, args.top)
+            with mock.patch.object(quant, "_fused", lambda acc: False):
+                measured["plain"] = chunk_stats(forward, cuda_ms, args.top)
 
     # The 13 trunk convs of a chunk: the stem, each block's conv1, and its
     # conv2, the last one with the bf16 copy the bf16 heads read.
@@ -97,7 +104,8 @@ def main(argv=None):
     print(json.dumps({
         "card": torch.cuda.get_device_name(0), "chunk": chunk,
         "residual": modes[0], "heads": modes[1], **measured["fused"],
-        "plain": measured["plain"], "piece_ms": piece_ms, "epilogue": rows,
+        "plain_gate": measured["plain_gate"], "plain": measured["plain"],
+        "piece_ms": piece_ms, "epilogue": rows, "gate": gate,
         "epilogue_chunk": {
             k: sum(c * by_form[f][k] for f, c in per_chunk.items() if c)
             for k in ("ms", "graph_ms", "plain_ms", "plain_graph_ms",
@@ -213,6 +221,58 @@ def epilogue_rows(qp, B: int, side: int, residual: str, sets: int = 4,
     return rows
 
 
+def gate_row(qp, B: int, side: int, sets: int = 4, seed: int = 1) -> dict:
+    """The SE gate of the first block of the executor's parameters ``qp``
+    (``quant._executor_params``, on the card) at ``B`` boards of ``side``,
+    on ``sets`` sets of tap sums (random s8 activations through the block's
+    conv1 and its plain epilogue): the kernel (``quant._se_gate_block``)
+    against the plain chain (``quant._se_gate_from_taps``), ``max_ulps``
+    and ``equal_share`` of the gates' bf16 values over every set; ``ms``
+    and ``plain_ms`` eager by CUDA events, ``graph_ms`` and
+    ``plain_graph_ms`` by ``cycled_graph_ms``; ``launches`` and
+    ``plain_launches`` of one call (``torch.profiler``); and ``bound_ms``,
+    the bytes the kernel reads and writes at 3.35 TB/s."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from alphazero_tpu_torch.models import quant
+    from alphazero_tpu_torch.scripts.profile_s8_dots import cuda_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    blk, hw = qp["blocks"][0], side * side
+    taps = []
+    for _ in range(sets):
+        x = torch.randint(0, 128, (B, side, side, blk["wq1"].shape[2]),
+                          generator=gen, device="cuda", dtype=torch.int8)
+        taps.append(quant._epilogue_conv1_plain(quant._conv_i8(x, blk["wq1"]), blk)[1])
+    kerns = [lambda t=t: quant._se_gate_block(t, hw, blk) for t in taps]
+    plains = [lambda t=t: quant._se_gate_from_taps(t, hw, blk) for t in taps]
+    ulps = torch.cat([(k().view(torch.int16).int() - p().view(torch.int16).int()).abs().ravel()
+                      for k, p in zip(kerns, plains)])
+
+    def launches(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.count for e in _kernels(prof))
+
+    gw = blk["gate"]
+    moved = (taps[0].nbytes + B * gw.O * 2
+             + sum(t.nbytes for t in (gw.w, gw.m, gw.bias, gw.w1, gw.b1, gw.w2, gw.b2)))
+    return {
+        "shape": list(taps[0].shape), "hw": hw, "O": gw.O, "hidden": gw.hidden,
+        "max_ulps": int(ulps.max()), "equal_share": float((ulps == 0).float().mean()),
+        "ms": cuda_ms(lambda: [f() for f in kerns], 5) / sets,
+        "graph_ms": cycled_graph_ms(kerns),
+        "plain_ms": cuda_ms(lambda: [f() for f in plains], 5) / sets,
+        "plain_graph_ms": cycled_graph_ms(plains),
+        "launches": launches(kerns[0]), "plain_launches": launches(plains[0]),
+        "bytes": moved, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+    }
+
+
 def chunk_stats(forward, cuda_ms, top: int) -> dict:
     """One chunk's time by CUDA events, the host's time to enqueue it, its
     launches and device time (``torch.profiler``) and its top kernels."""
@@ -233,21 +293,25 @@ def chunk_stats(forward, cuda_ms, top: int) -> dict:
             forward()
         torch.cuda.synchronize()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.self_cpu_time_total == 0 and dev_us(e) > 0),
-                     key=dev_us, reverse=True)
+    kernels = sorted(_kernels(prof), key=_dev_us, reverse=True)
     return {
         "chunk_ms": chunk_ms, "host_enqueue_ms": enqueue_ms,
-        "device_ms": sum(dev_us(e) for e in kernels) / reps / 1e3,
+        "device_ms": sum(_dev_us(e) for e in kernels) / reps / 1e3,
         "launches": sum(e.count for e in kernels) / reps,
         "top_kernels_by_device": [
-            {"name": e.key[:100], "device_ms": dev_us(e) / reps / 1e3,
+            {"name": e.key[:100], "device_ms": _dev_us(e) / reps / 1e3,
              "launches": e.count / reps} for e in kernels[:top]],
     }
+
+
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+
+def _kernels(prof) -> list:
+    """The device activities of a ``torch.profiler`` run, by name."""
+    return [e for e in prof.key_averages()
+            if e.self_cpu_time_total == 0 and _dev_us(e) > 0]
 
 
 if __name__ == "__main__":

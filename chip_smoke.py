@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build: every CUDA source (gather_rows, wgmma_mm, int8_epilogue), one nvcc each,
+  2. build: every CUDA source (gather_rows, wgmma_mm, int8_epilogue, se_gate), one nvcc each,
      started together (sm_90a); prints each kernel's registers and shared
      memory, counts the wgmma and TMA instructions in wgmma_mm's machine
      code, the IGMMA (s8) / HGMMA (bf16) instructions of every chained_dot
@@ -36,15 +36,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (ops/int8_epilogue.py) against its plain passes at a Gomoku chunk's
      accumulator (bit for bit), with CUDA-event times of both, eager and
      from a CUDA graph that cycles through inputs larger than L2
-     (scripts/profile_int8_chunk.epilogue_rows), and its bytes bound;
+     (scripts/profile_int8_chunk.epilogue_rows), and its bytes bound; the SE
+     gate's kernel (ops/se_gate.py) against its plain chain within a bf16
+     ulp, at every gate call of the production executor's forward over
+     1,024 of the calibration positions and at a chunk's tap sums, timed as
+     the epilogue is (scripts/profile_int8_chunk.gate_row);
   5. main path at full width with the production executor: the flagship
      6x64 SE-ResNet bundle, rollout calibration on the card, int8 trunk,
      driving make_host_actor at B=1024, 800 simulations, W=16, K=32,
      recycle on, for 2 moves (1 warm-up, 1 timed; cut from 3, printed);
      checks root visit sums, action legality, and that gather_rows and
      s8_mm were launched, s8_mm exactly as often as the chunk count
-     predicts, and int8_epilogue once for each of those products (the
-     heads' convs are bf16); prints gather launches a move;
+     predicts, int8_epilogue once for each of those products (the
+     heads' convs are bf16), and se_gate once a block a chunk; prints
+     gather launches a move;
      [w1_main]: the sequential search (W=1) at the shipped config's width,
      B=256, 200 simulations (cut from 800, then 400), int8
      executor, 2 moves: the same checks, s8_mm exactly 13 x (1 + 200)
@@ -310,7 +315,7 @@ def phase_device() -> tuple:
 def phase_build() -> None:
     from alphazero_tpu_torch.ops import _build
 
-    names = ["gather_rows", "wgmma_mm", "int8_epilogue"]
+    names = ["gather_rows", "wgmma_mm", "int8_epilogue", "se_gate"]
     t0 = time.perf_counter()
     _build.build(names)
     secs = time.perf_counter() - t0
@@ -729,27 +734,57 @@ def phase_net_int8(env, model, calib) -> dict:
     return res
 
 
-def phase_epilogue(env, model, calib) -> list:
+def phase_epilogue(env, model, calib) -> tuple:
     """[epilogue]: ``scripts/profile_int8_chunk.epilogue_rows`` on the
     flagship's executor parameters at a chunk of ``env``'s boards, in the
     production residual mode: each form of the int8 trunk's epilogue kernel
     bit for bit its plain passes, with the times of both and the bytes
-    bound."""
+    bound.  Then the SE gate's kernel: every gate call of the production
+    executor's forward over 1,024 calibration positions recorded and held
+    against the plain chain within a bf16 ulp, and ``gate_row`` at a
+    chunk's tap sums.  Returns the epilogue's rows and the gate's row."""
     from alphazero_tpu_torch import production
     from alphazero_tpu_torch.models import quant
-    from alphazero_tpu_torch.scripts.profile_int8_chunk import epilogue_rows
+    from alphazero_tpu_torch.scripts.profile_int8_chunk import epilogue_rows, gate_row
 
     qp = quant._executor_params(quant.build_quantized_params(
         model, calib, calib_percentile=production.INT8_CALIB_PERCENTILE))
+    side = env.observation_shape[-1]
     with torch.no_grad():
-        rows = epilogue_rows(qp, production.INT8_CHUNK, env.observation_shape[-1],
-                             production.INT8_RESIDUAL)
+        rows = epilogue_rows(qp, production.INT8_CHUNK, side, production.INT8_RESIDUAL)
     for r in rows:
         log("[epilogue] " + json.dumps(r))
     bad = [r["form"] for r in rows if not r["bit_equal"]]
     if bad:
         raise AssertionError(f"int8_epilogue differs from its plain passes: {bad}")
-    return rows
+
+    calls, orig = [], quant._se_gate_block
+
+    def recorded(taps, hw, blk):
+        calls.append((taps, hw, blk))
+        return orig(taps, hw, blk)
+
+    quant._se_gate_block = recorded
+    try:
+        with torch.no_grad():
+            quant._chunked_int8_eval(qp, calib[:2 * production.INT8_CHUNK],
+                                     production.INT8_CHUNK, "unroll",
+                                     production.INT8_RESIDUAL, production.INT8_HEADS)
+    finally:
+        quant._se_gate_block = orig
+    ulps = [(orig(*c).view(torch.int16).int()
+             - quant._se_gate_from_taps(*c).view(torch.int16).int()).abs() for c in calls]
+    held = {"calls": len(calls), "max_ulps": max(int(u.max()) for u in ulps),
+            "equal_share": sum(int((u == 0).sum()) for u in ulps)
+            / sum(u.numel() for u in ulps)}
+    log("[epilogue] se_gate at the main path's calls vs plain: " + json.dumps(held))
+    with torch.no_grad():
+        gate = gate_row(qp, production.INT8_CHUNK, side)
+    log("[epilogue] se_gate " + json.dumps(gate))
+    if (held["calls"] != 2 * len(qp["blocks"]) or held["max_ulps"] > 1
+            or gate["max_ulps"] > 1 or gate["launches"] != 1):
+        raise AssertionError(f"se_gate against its plain chain: {held}, {gate}")
+    return rows, gate
 
 
 def _s8_launches_expected(batches, convs: int, chunk: int) -> int:
@@ -786,6 +821,7 @@ def phase_main_path(env, eval_fn, label: str, sims: int, moves: int,
     from alphazero_tpu_torch.ops.gather_rows import gather_rows
     from alphazero_tpu_torch.ops.int8_epilogue import int8_epilogue
     from alphazero_tpu_torch.ops.s8_mm import s8_mm
+    from alphazero_tpu_torch.ops.se_gate import se_gate
     from alphazero_tpu_torch.selfplay.actor import SelfPlayConfig, make_host_actor
 
     greedy = greedy or reuse
@@ -826,6 +862,7 @@ def phase_main_path(env, eval_fn, label: str, sims: int, moves: int,
     gather_rows.launches = 0
     s8_mm.launches = 0
     int8_epilogue.launches = 0
+    se_gate.launches = 0
     times, fresh, per_move = [], [], []
     for move in range(moves):
         before = (gather_rows.launches, s8_mm.launches, len(batches))
@@ -842,7 +879,7 @@ def phase_main_path(env, eval_fn, label: str, sims: int, moves: int,
             fresh.append(step.search.last_fresh_sims)
         states = new_states
     launches = {"gather_rows": gather_rows.launches, "s8_mm": s8_mm.launches,
-                "int8_epilogue": int8_epilogue.launches}
+                "int8_epilogue": int8_epilogue.launches, "se_gate": se_gate.launches}
     gather_per_move = gather_rows.launches / moves
     if launches["gather_rows"] <= 0:
         raise AssertionError(f"the {tag} path launched no gather_rows kernel")
@@ -858,6 +895,12 @@ def phase_main_path(env, eval_fn, label: str, sims: int, moves: int,
     if launches["int8_epilogue"] != epilogues:
         raise AssertionError(f"int8_epilogue launches {launches['int8_epilogue']}, "
                              f"but the evaluated batches predict {epilogues}")
+    # One SE gate a block: (trunk convs - the stem) / 2 a chunk.
+    gates = _s8_launches_expected(batches, max(s8_convs - heads_convs - 1, 0) // 2,
+                                  production.INT8_CHUNK)
+    if launches["se_gate"] != gates:
+        raise AssertionError(f"se_gate launches {launches['se_gate']}, but the "
+                             f"evaluated batches predict {gates}")
     if reuse and not (fresh[0] == sims and max(fresh[1:]) < sims):
         raise AssertionError(f"tree reuse saved no simulations: {fresh}")
     if reuse:
@@ -4545,7 +4588,7 @@ def main() -> int:
     log(f"[calibration] {tuple(calib.shape)} rollout observations, calibrated "
         f"and quantised in {time.perf_counter() - t0:.2f} s")
     phase_net_int8(env, model, calib)
-    epilogue_rows = timed("epilogue", phase_epilogue, env, model, calib)
+    epilogue_rows, gate_row = timed("epilogue", phase_epilogue, env, model, calib)
     convs = 1 + 2 * model.cfg.num_blocks  # bf16 heads: trunk convs only
     # Cut to keep the script near 300 s: [main] plays 2 moves (was 3), one
     # of them timed.
@@ -4665,6 +4708,23 @@ def main() -> int:
         "graph_ms": conv2["graph_ms"],
         "plain_ms": conv2["plain_ms"],
         "bound_ms": conv2["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    })
+    # The SE gate's line: its times at a chunk's tap sums, held within a bf16
+    # ulp of its plain chain in [epilogue]; the JAX package leaves the gate to
+    # XLA (alphazero_tpu/models/quant.py _se_gate_precomputed).
+    kernels.append({
+        "name": "se_gate",
+        "route": "cuda",
+        "source": "alphazero_tpu_torch/csrc/se_gate.cu",
+        "replaces": "alphazero_tpu/models/quant.py:260",
+        "launches": main_res["launches"]["se_gate"],
+        "max_ulps": gate_row["max_ulps"],
+        "ms": gate_row["ms"],
+        "graph_ms": gate_row["graph_ms"],
+        "plain_ms": gate_row["plain_ms"],
+        "bound_ms": gate_row["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
     })
